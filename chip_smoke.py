@@ -1,0 +1,396 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``hmcmt2d_tpu_torch``).
+
+Run from the root of a checkout, on a machine with one CUDA GPU and nvcc:
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure:
+
+1. the card's name and power limit (nvidia-smi); TF32 off;
+2. build the CUDA kernels from ``hmcmt2d_tpu_torch/csrc``;
+3. each kernel against its plain PyTorch version at the shapes of the main
+   path (the equilibrated flagship operator at C = 8 chains: B = 176 systems,
+   nzi = 55 z-lines, q = 95), with times, the card's bound for the same
+   work, and a library yardstick;
+4. the main path: one batched potential value-and-grad of the flagship at
+   full width, C = 8, on the fused kernels, with the launch counts of that
+   run, held against the port's own complex128 thomas engine on the card;
+5. three HMC samples at C = 8 driven by that gradient;
+6. a JSON summary of the kernels, the card's name and power limit, and as
+   the last line ``{"ok": true, "device": {...}}``.
+
+Imports nothing of JAX and nothing of the JAX package ``hmcmt2d_tpu``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+C = 8                 # chains of the main path
+SEED = 0
+FACTOR_REL_TOL = 1e-4  # f32 factor, other rounding order over 55 lines
+SWEEP_REL_TOL = 1e-5   # f32 sweeps given the same G
+U_REL_TOL = 1e-3       # fused complex64 vs complex128 potential (see phase 4)
+GRAD_COS_MIN = 0.999
+
+# Published peaks (NVIDIA data sheets, dense, no sparsity): float32 on the
+# CUDA cores, and device-memory bandwidth, by the name torch reports.
+PEAKS = {
+    "H100 PCIe": (51e12, 2.0e12),
+    "H100 NVL": (60e12, 3.9e12),
+    "H200": (67e12, 4.8e12),
+    "H100": (67e12, 3.35e12),       # SXM, "NVIDIA H100 80GB HBM3"
+}
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(obj) -> None:
+    print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks(name: str) -> tuple[float, float, str]:
+    for key, (flops, bw) in PEAKS.items():
+        if key in name:
+            return flops, bw, key
+    return (*PEAKS["H100"], "H100 (assumed)")
+
+
+def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of fn(), after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
+def rel_err(torch, got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max |want|)."""
+    abs_err = float((got - want).abs().max())
+    return abs_err, abs_err / float(want.abs().max())
+
+
+def flagship_system(problem, m):
+    """The equilibrated complex64 interior system of the merged TE+TM solve
+    at model m (C, P), flattened to (B, nzi, q): the factor's input on the
+    main path (ops/solver.py factorize)."""
+    import torch
+    from hmcmt2d_tpu_torch.models import forward as F
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    cfg = problem.fwd.cfg
+    sig = problem.sigma2d(m)
+    st = F._cast_stencil(problem.fwd.merged_stencil(sig), cfg.real_dtype)
+    omegas = 2.0 * np.pi * torch.as_tensor(problem.fwd.data.freqs,
+                                           dtype=sig.dtype, device=sig.device)
+    om = omegas.to(cfg.real_dtype).reshape((-1, 1, 1, 1, 1))
+    sys_ = S.interior_system(st, om, dtype=cfg.solve_dtype)
+    ssys, _ = S.equilibrate(sys_)
+    return FF.flatten_system(*ssys)[:3]
+
+
+def check_kernels(torch, problem, m, flops_peak, bw_peak):
+    """Phase 3: every kernel against its plain version at main-path shapes."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    d, oy, oz = flagship_system(problem, m)
+    B, nzi, q = d.shape
+    say(f"[kernels] flagship system B={B} nzi={nzi} q={q}")
+    results = {}
+
+    # schur_factor
+    G = FF.schur_factor(d, oy, oz)
+    G_plain = FF.schur_factor_plain(d, oy, oz)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(torch.view_as_real(G)).all()):
+        fail("schur_factor produced non-finite values")
+    abs_e, rel_e = rel_err(torch, G, G_plain)
+    flops = 8.0 * q ** 3 * nzi * B
+    nbytes = B * nzi * (8 * q + 4 * (q - 1) + 8 * q * q) + 4 * B * (nzi - 1) * q
+    results["schur_factor"] = dict(
+        rel=rel_e, abs=abs_e, tol=FACTOR_REL_TOL,
+        kernel_ms=time_ms(torch, lambda: FF.schur_factor(d, oy, oz), 10),
+        plain_ms=time_ms(torch, lambda: FF.schur_factor_plain(d, oy, oz), 5),
+        library_ms=time_ms(torch, lambda: S.bt_factor(S.InteriorSystem(d, oy, oz)), 10),
+        library="torch.linalg.inv per line (the thomas chain, S.bt_factor)",
+        flops=flops, bytes=nbytes,
+        bound_formula="max(8 q^3 nzi B / fp32 peak, (in + G out bytes) / bandwidth)")
+    del G_plain
+
+    # the sweeps, given the same G
+    rng = np.random.default_rng(SEED)
+    b = torch.as_tensor((rng.standard_normal((B, nzi, q))
+                         + 1j * rng.standard_normal((B, nzi, q))).astype(np.complex64),
+                        device=d.device)
+    y = FF.bt_sweep_fwd(G, oz, b)
+    y_plain = FF.bt_sweep_fwd_plain(G, oz, b)
+    x = FF.bt_sweep_bwd(G, oz, y_plain)
+    x_plain = FF.bt_sweep_bwd_plain(G, oz, y_plain)
+    torch.cuda.synchronize()
+    sw_flops = 8.0 * q * q * nzi * B
+    sw_bytes = 8 * B * nzi * q * q + 4 * B * (nzi - 1) * q + 2 * 8 * B * nzi * q
+    for name, got, want, kern, plain, arg in (
+            ("bt_sweep_fwd", y, y_plain, FF.bt_sweep_fwd, FF.bt_sweep_fwd_plain, b),
+            ("bt_sweep_bwd", x, x_plain, FF.bt_sweep_bwd, FF.bt_sweep_bwd_plain, y_plain)):
+        abs_e, rel_e = rel_err(torch, got, want)
+        results[name] = dict(
+            rel=rel_e, abs=abs_e, tol=SWEEP_REL_TOL,
+            kernel_ms=time_ms(torch, lambda k=kern, a=arg: k(G, oz, a), 10),
+            plain_ms=time_ms(torch, lambda p=plain, a=arg: p(G, oz, a), 10),
+            library_ms=None, library="none: no single PyTorch call computes it",
+            flops=sw_flops, bytes=sw_bytes,
+            bound_formula="max(8 q^2 nzi B / fp32 peak, (G + offz + rhs + out bytes) / bandwidth)")
+
+    for name, r in results.items():
+        t_ops = r["flops"] / flops_peak * 1e3
+        t_bytes = r["bytes"] / bw_peak * 1e3
+        r["bound_ms"] = max(t_ops, t_bytes)
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        say({"kernel": name, "max_rel_err": r["rel"], "max_abs_err": r["abs"],
+             "rel_tol": r["tol"], "kernel_ms": r["kernel_ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "bound_formula": r["bound_formula"],
+             "flops": r["flops"], "bytes": r["bytes"],
+             "library_ms": r["library_ms"], "library": r["library"],
+             "launches_per_eval": {"schur_factor": 1}.get(name, 14)})
+    for name, r in results.items():
+        if not r["rel"] <= r["tol"]:
+            fail(f"{name}: max relative error {r['rel']:.3e} > {r['tol']:.0e}")
+    return results
+
+
+def profile_eval(torch, vg, m, m_ref) -> dict:
+    """One gradient evaluation under torch.profiler: device time by kernel
+    (ours by name, the rest summed), and the device's busy share of the
+    profiled wall time (the profiler's own overhead inflates the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vg(m, m_ref)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = (us / 1e3, e.count)
+    total = sum(ms for ms, _ in kernels.values())
+    ours = {}
+    for short in ("schur_factor_kernel", "bt_sweep_fwd_kernel", "bt_sweep_bwd_kernel"):
+        hit = [(ms, n) for k, (ms, n) in kernels.items() if short in k]
+        ours[short] = {"ms": sum(ms for ms, _ in hit), "count": sum(n for _, n in hit)}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"profiled_wall_ms": wall_ms, "device_ms": total,
+            "device_busy_share": total / wall_ms,
+            "device_kernels": sum(n for _, n in kernels.values()),
+            "ours": ours,
+            "other_device_ms": total - sum(v["ms"] for v in ours.values()),
+            "top": [{"kernel": k[:80], "ms": ms, "count": n} for k, (ms, n) in top]}
+
+
+def realistic(problem, m0_t):
+    """Observations = the problem's own prediction at the start model plus
+    3% complex noise (numpy seed 0), errors 3% of |obs| (bench.py:45-66)."""
+    import torch
+
+    with torch.no_grad():
+        obs = problem.predict(m0_t).cpu().numpy().astype(np.complex128)
+    if obs.shape != (problem.fwd.data.n_data,):
+        fail(f"prediction at the start model has shape {obs.shape}")
+    rng = np.random.default_rng(0)
+    noise = rng.standard_normal(len(obs)) + 1j * rng.standard_normal(len(obs))
+    obs = obs * (1 + 0.03 * noise / np.sqrt(2))
+    return dataclasses.replace(problem, obs=obs,
+                               weights=1.0 / (0.03 * np.abs(obs)))
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    smi = smi_line() if torch.cuda.is_available() else None
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this test needs a CUDA GPU")
+    if not (ROOT / "hmcmt2d_tpu_torch" / "__init__.py").exists():
+        fail(f"no hmcmt2d_tpu_torch package beside {Path(__file__).name}: "
+             "run it from the root of a checkout")
+    sys.path.insert(0, str(ROOT))
+
+    # phase 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    flops_peak, bw_peak, peak_key = peaks(name)
+    say(f"[card] {smi}")
+    say(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; TF32 off "
+        f"(matmul and cudnn); peaks for {peak_key}: fp32 {flops_peak / 1e12:g} "
+        f"TFLOP/s, {bw_peak / 1e12:g} TB/s")
+
+    from hmcmt2d_tpu_torch.entry import flagship_problem
+    from hmcmt2d_tpu_torch.models.forward import SolveConfig, make_forward
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.ops import kernel_build
+    from hmcmt2d_tpu_torch.sampler import hmc as H
+    from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg
+
+    # phase 2
+    t0 = time.perf_counter()
+    kernel_build.library()
+    say(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {kernel_build.build_seconds and round(kernel_build.build_seconds, 1)} s)")
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    problem, m0 = flagship_problem(device=dev)
+    if problem.fwd.cfg.solver_method != "fused":
+        fail(f"default config on the GPU is {problem.fwd.cfg}, not fused")
+    m0_t = torch.as_tensor(m0, dtype=torch.float32, device=dev)
+    problem = realistic(problem, m0_t)
+    rng = np.random.default_rng(1)
+    m = (m0_t + 0.01 * torch.as_tensor(rng.standard_normal((C, len(m0))),
+                                       dtype=torch.float32, device=dev))
+    m_ref = m0_t.expand(C, -1)
+    say(f"[setup] flagship {problem.mesh.nz}x{problem.mesh.ny} cells, "
+        f"{problem.fwd.data.n_data} data, {problem.n_param} parameters, C={C}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 3
+    kres = check_kernels(torch, problem, m, flops_peak, bw_peak)
+
+    # phase 4: the main path, counted
+    vg = make_potential_vg(problem, 1.0)
+    torch.cuda.synchronize()
+    FF.reset_launches()
+    t0 = time.perf_counter()
+    (U, (misfit, mnorm, pred)), g = vg(m, m_ref)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = FF.launches()
+    say({"main_path_launches": counts})
+    want = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+    if counts != want:
+        fail(f"launch counts {counts} != expected {want}")
+    if not (torch.isfinite(U).all() and torch.isfinite(g).all()):
+        fail("non-finite potential or gradient on the main path")
+    if tuple(g.shape) != (C, problem.n_param) or tuple(pred.shape) != (C, problem.fwd.data.n_data):
+        fail(f"unexpected shapes: grad {tuple(g.shape)}, pred {tuple(pred.shape)}")
+    eval_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vg(m, m_ref)
+        torch.cuda.synchronize()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    say({"profile": profile_eval(torch, vg, m, m_ref)})
+
+    ref = dataclasses.replace(problem, fwd=make_forward(
+        problem.mesh, problem.fwd.data, SolveConfig(torch.complex128, 0, "thomas")))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (U_ref, _), g_ref = make_potential_vg(ref, 1.0)(m.double(), m_ref.double())
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    u_rel = float(((U - U_ref).abs() / U_ref.abs()).max())
+    g64 = g.double()
+    cos = (g64 * g_ref).sum(-1) / (g64.norm(dim=-1) * g_ref.norm(dim=-1))
+    g_rel = float(((g64 - g_ref).norm(dim=-1) / g_ref.norm(dim=-1)).max())
+    say({"main_path": "potential_value_and_grad", "chains": C,
+         "systems": C * problem.fwd.data.n_freq * 2,
+         "U": U.cpu().tolist(), "U_complex128": U_ref.cpu().tolist(),
+         "U_max_rel_err": u_rel, "U_rel_tol": U_REL_TOL,
+         "grad_min_cosine": float(cos.min()), "grad_cos_min": GRAD_COS_MIN,
+         "grad_max_rel_norm_err": g_rel,
+         "first_eval_ms": first_ms, "eval_ms": eval_ms,
+         "grad_evals_per_s": 1e3 / float(np.median(eval_ms)),
+         "solves_per_s": C * problem.fwd.data.n_freq * 2 * 1e3 / float(np.median(eval_ms)),
+         "complex128_thomas_eval_ms": ref_ms})
+    if not u_rel <= U_REL_TOL:
+        fail(f"U relative error {u_rel:.3e} > {U_REL_TOL}")
+    if not float(cos.min()) >= GRAD_COS_MIN:
+        fail(f"gradient cosine {float(cos.min()):.6f} < {GRAD_COS_MIN}")
+    del ref, g_ref
+
+    # phase 5: a few HMC iterations on the main path
+    opts = H.HMCOptions(dt=1e-3, steps_lo=4, steps_hi=4,
+                        log_sig_lo=float(np.log(1e-4)),
+                        log_sig_hi=float(np.log(10.0)), reg_param=1.0)
+    mass = H.identity_mass(problem.n_param, torch.float32, dev)
+    init = H.ChainState(m=m, grad=g, misfit=misfit, mnorm=mnorm, pred=pred)
+    n_samples = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = H.run_hmc(vg, opts, mass, m, m_ref, n_samples, SEED, init_state=init)
+    torch.cuda.synchronize()
+    hmc_s = time.perf_counter() - t0
+    acc = float(res.accepts.float().mean())
+    finite = bool(torch.isfinite(res.stats).all() and torch.isfinite(res.models).all())
+    say({"hmc_samples": n_samples, "chains": C, "accept_rate": acc,
+         "stats_finite": finite, "leapfrog_steps": res.lf_steps[:, 0].tolist(),
+         "ms_per_sample": hmc_s * 1e3 / n_samples,
+         "samples_per_s_per_chip": C * n_samples / hmc_s,
+         "misfit_last": res.stats[-1, :, 0].cpu().tolist()})
+    if not finite:
+        fail("non-finite HMC stats or models")
+    if not 0.0 <= acc <= 1.0:
+        fail(f"accept rate {acc} outside [0, 1]")
+
+    # phase 6
+    replaces = {
+        "schur_factor": "hmcmt2d_tpu/ops/pallas_factor.py:137",
+        "bt_sweep_fwd": "hmcmt2d_tpu/ops/pallas_factor.py:357",
+        "bt_sweep_bwd": "hmcmt2d_tpu/ops/pallas_factor.py:383",
+    }
+    source = {
+        "schur_factor": "hmcmt2d_tpu_torch/csrc/schur_factor.cu",
+        "bt_sweep_fwd": "hmcmt2d_tpu_torch/csrc/bt_sweep.cu",
+        "bt_sweep_bwd": "hmcmt2d_tpu_torch/csrc/bt_sweep.cu",
+    }
+    kernels = [{"name": k, "route": "cuda", "source": source[k],
+                "replaces": replaces[k], "launches": counts[k],
+                "max_abs_err": r["abs"], "max_rel_err": r["rel"],
+                "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]} for k, r in kres.items()]
+    say({"kernels": kernels})
+    say(smi_line())
+    say({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

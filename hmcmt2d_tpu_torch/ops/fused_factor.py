@@ -1,0 +1,265 @@
+"""The fused block-Thomas engine: three hand-written CUDA kernels.
+
+Counterpart of ``hmcmt2d_tpu/ops/pallas_factor.py``, whose three Pallas TPU
+kernels carry the production solve.  Each becomes a CUDA C++ kernel for
+Hopper (sources in ``hmcmt2d_tpu_torch/csrc``, built by
+:mod:`.kernel_build`), with beside it:
+
+* a plain PyTorch version that computes the same function with the same
+  algorithm, in the input's dtype (the CPU path, and the yardstick the
+  kernel is held against on the card);
+* a wrapper that takes the plain version for a CPU tensor and launches the
+  kernel for a CUDA tensor, or raises: it never falls back;
+* a launch counter, ``<wrapper>.launches``, raised by one at each launch.
+
+=================  ==========================================  ============
+kernel (csrc)      replaces (hmcmt2d_tpu/ops/pallas_factor.py)  bound
+=================  ==========================================  ============
+schur_factor       ``_factor_kernel`` :137-194                  operations
+bt_sweep_fwd       ``_sweep_fwd_kernel`` :357-380               bytes
+bt_sweep_bwd       ``_sweep_bwd_kernel`` :383-408               bytes
+=================  ==========================================  ============
+
+The TPU layout (split real/imaginary planes, q padded to 128, q-tight
+rows) existed because Pallas on a TPU has no complex type and tiles by
+(8, 128).  The kernels here take complex64 tensors as interleaved float2:
+G is (B, nzi, q, q) complex64, C-contiguous, one system per thread block.
+The source notes in ``csrc/*.cu`` say what bounds each kernel on the card
+and what its design does about it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import kernel_build
+
+Q_MAX = 128   # largest block: q*q complex floats must fit in shared memory
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if t.device != device or device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}, expected one CUDA device")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous() or t.is_conj() or t.is_neg():
+        raise ValueError(f"{name} must be contiguous, with no lazy conj/neg bit")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    """CPU tensors take the plain version; every other tensor the kernel,
+    which raises unless the tensor lies on a GPU and the kernels build."""
+    return t.device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# schur_factor
+# ---------------------------------------------------------------------------
+
+def gj_inverse_nopivot(A: torch.Tensor) -> torch.Tensor:
+    """In-place-order unpivoted Gauss-Jordan inverse of (..., q, q): the
+    elimination of ``csrc/schur_factor.cu``, step for step.  Stable on the
+    equilibrated MT operator, whose real part is positive definite."""
+    A = A.clone()
+    for k in range(A.shape[-1]):
+        p = 1.0 / A[..., k, k]
+        col = A[..., :, k].clone()
+        row = A[..., k, :] * p[..., None]
+        A = A - col[..., :, None] * row[..., None, :]
+        A[..., k, :] = row
+        A[..., :, k] = -col * p[..., None]
+        A[..., k, k] = p
+    return A
+
+
+def _dense_line(d: torch.Tensor, oy: torch.Tensor) -> torch.Tensor:
+    """Tridiagonal T (B, q, q) from its diagonal (B, q) and y-coupling
+    (B, q-1); the off-diagonal entries are -oy."""
+    T = torch.diag_embed(d)
+    ocx = (-oy).to(d.dtype)
+    return T + torch.diag_embed(ocx, 1) + torch.diag_embed(ocx, -1)
+
+
+def schur_factor_plain(diag: torch.Tensor, offy: torch.Tensor,
+                       offz: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``schur_factor``: G (B, nzi, q, q) from diag (B, nzi,
+    q) complex, offy (B, nzi, q-1) and offz (B, nzi-1, q) real."""
+    Gs = []
+    for j in range(diag.shape[1]):
+        S = _dense_line(diag[:, j], offy[:, j])
+        if j > 0:
+            c = offz[:, j - 1]
+            S = S - (c[:, :, None] * c[:, None, :]) * Gs[-1]
+        Gs.append(gj_inverse_nopivot(S))
+    return torch.stack(Gs, dim=1)
+
+
+def schur_factor(diag: torch.Tensor, offy: torch.Tensor,
+                 offz: torch.Tensor) -> torch.Tensor:
+    """Schur-chain factor: CUDA kernel for CUDA tensors (complex64 diag,
+    float32 couplings, contiguous), plain version for CPU tensors."""
+    if _on_cpu(diag):
+        return schur_factor_plain(diag, offy, offz)
+    lib = kernel_build.library()
+    B, nzi, q = diag.shape
+    if q > Q_MAX:
+        raise ValueError(f"schur_factor supports q <= {Q_MAX}, got {q}")
+    dev = diag.device
+    _check(diag, "diag", torch.complex64, (B, nzi, q), dev)
+    _check(offy, "offy", torch.float32, (B, nzi, q - 1), dev)
+    _check(offz, "offz", torch.float32, (B, nzi - 1, q), dev)
+    G = torch.empty((B, nzi, q, q), dtype=torch.complex64, device=dev)
+    err = lib.hmc_schur_factor(diag.data_ptr(), offy.data_ptr(),
+                               offz.data_ptr(), G.data_ptr(), B, nzi, q,
+                               _stream())
+    _raise_on(err, "schur_factor")
+    schur_factor.launches += 1
+    return G
+
+
+schur_factor.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bt_sweep_fwd / bt_sweep_bwd
+# ---------------------------------------------------------------------------
+
+def _mv(Gj: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (Gj @ v[..., None])[..., 0]
+
+
+def bt_sweep_fwd_plain(G: torch.Tensor, offz: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
+    """y_0 = G_0 b_0, y_j = G_j (b_j + c_{j-1} * y_{j-1}); (B, nzi, q)."""
+    c = offz.to(G.dtype)
+    ys = [_mv(G[:, 0], b[:, 0])]
+    for j in range(1, G.shape[1]):
+        ys.append(_mv(G[:, j], b[:, j] + c[:, j - 1] * ys[-1]))
+    return torch.stack(ys, dim=1)
+
+
+def bt_sweep_bwd_plain(G: torch.Tensor, offz: torch.Tensor,
+                       y: torch.Tensor) -> torch.Tensor:
+    """x_{n-1} = y_{n-1}, x_j = y_j + G_j (c_j * x_{j+1}); (B, nzi, q)."""
+    c = offz.to(G.dtype)
+    nzi = G.shape[1]
+    xs = [y[:, nzi - 1]]
+    for j in range(nzi - 2, -1, -1):
+        xs.append(y[:, j] + _mv(G[:, j], c[:, j] * xs[-1]))
+    return torch.stack(xs[::-1], dim=1)
+
+
+def _sweep(name: str, G: torch.Tensor, offz: torch.Tensor,
+           v: torch.Tensor) -> torch.Tensor:
+    lib = kernel_build.library()
+    B, nzi, q, _ = G.shape
+    dev = G.device
+    _check(G, "G", torch.complex64, (B, nzi, q, q), dev)
+    _check(offz, "offz", torch.float32, (B, nzi - 1, q), dev)
+    _check(v, "rhs", torch.complex64, (B, nzi, q), dev)
+    out = torch.empty((B, nzi, q), dtype=torch.complex64, device=dev)
+    err = getattr(lib, "hmc_" + name)(G.data_ptr(), offz.data_ptr(),
+                                      v.data_ptr(), out.data_ptr(), B, nzi,
+                                      q, _stream())
+    _raise_on(err, name)
+    return out
+
+
+def bt_sweep_fwd(G: torch.Tensor, offz: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Forward sweep: CUDA kernel for CUDA tensors, plain version on CPU."""
+    if _on_cpu(G):
+        return bt_sweep_fwd_plain(G, offz, b)
+    out = _sweep("bt_sweep_fwd", G, offz, b)
+    bt_sweep_fwd.launches += 1
+    return out
+
+
+def bt_sweep_bwd(G: torch.Tensor, offz: torch.Tensor,
+                 y: torch.Tensor) -> torch.Tensor:
+    """Backward sweep: CUDA kernel for CUDA tensors, plain version on CPU."""
+    if _on_cpu(G):
+        return bt_sweep_bwd_plain(G, offz, y)
+    out = _sweep("bt_sweep_bwd", G, offz, y)
+    bt_sweep_bwd.launches += 1
+    return out
+
+
+bt_sweep_fwd.launches = 0
+bt_sweep_bwd.launches = 0
+
+KERNELS = (schur_factor, bt_sweep_fwd, bt_sweep_bwd)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# batched factor / solve on (..., nzi, q) systems
+# ---------------------------------------------------------------------------
+
+class FusedFactor(NamedTuple):
+    """Factors of the fused engine for a batch of systems collapsed to B."""
+
+    G: torch.Tensor      # (B, nzi, q, q) complex64 inverse Schur complements
+    offz: torch.Tensor   # (B, nzi-1, q) float32 z-coupling
+    batch: torch.Size    # the leading batch shape that was collapsed
+
+
+def flatten_system(diag: torch.Tensor, offy: torch.Tensor, offz: torch.Tensor):
+    """Broadcast an interior system's leading batch axes together and
+    collapse them: contiguous complex64 diag (B, nzi, q), float32 offy
+    (B, nzi, q-1) and offz (B, nzi-1, q), and the batch shape."""
+    nzi, q = diag.shape[-2:]
+    batch = torch.broadcast_shapes(diag.shape[:-2], offy.shape[:-2],
+                                   offz.shape[:-2])
+
+    def flat(t, tail, dtype):
+        t = t.expand(batch + tail).reshape((-1,) + tail).to(dtype)
+        return t.resolve_conj().contiguous()
+
+    return (flat(diag, (nzi, q), torch.complex64),
+            flat(offy, (nzi, q - 1), torch.float32),
+            flat(offz, (nzi - 1, q), torch.float32), batch)
+
+
+def fused_schur_factor(diag: torch.Tensor, offy: torch.Tensor,
+                       offz: torch.Tensor) -> FusedFactor:
+    """Factorise an (equilibrated) interior system with leading batch axes
+    that broadcast together; complex64 factors, float32 couplings."""
+    q = diag.shape[-1]
+    if q > Q_MAX:
+        raise ValueError(f"fused factor supports q <= {Q_MAX}, got {q}")
+    d, oy, oz, batch = flatten_system(diag, offy, offz)
+    return FusedFactor(schur_factor(d, oy, oz), oz, batch)
+
+
+def fused_bt_solve(fac: FusedFactor, b: torch.Tensor) -> torch.Tensor:
+    """Solve with fused factors; ``b`` is (..., nzi, q) with the factor's
+    batch shape.  Complex-symmetric, so also the transpose solve."""
+    tail = b.shape[-2:]
+    v = b.expand(fac.batch + tail).reshape((-1,) + tail)
+    v = v.to(torch.complex64).resolve_conj().contiguous()
+    y = bt_sweep_fwd(fac.G, fac.offz, v)
+    x = bt_sweep_bwd(fac.G, fac.offz, y)
+    return x.reshape(fac.batch + tail).to(b.dtype)

@@ -1,0 +1,90 @@
+"""The CUDA kernels on the card.  Every test here needs a GPU and skips
+without one.  The file imports neither JAX nor other test modules, so on the
+card it runs without the repo's conftest (which imports JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hmcmt2d_tpu_torch import entry
+from hmcmt2d_tpu_torch.models.forward import SolveConfig
+from hmcmt2d_tpu_torch.ops import fused_factor as FF
+from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg
+
+FACTOR_TOL = 2e-5
+SWEEP_TOL = 1e-5
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    """The GPU, or a skip: decided when the test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (run on the card)")
+    return torch.device("cuda")
+
+
+def relerr(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _system(B, nzi, q, seed):
+    """Random diagonally dominant systems, as tests/test_pallas_factor.py."""
+    rng = np.random.default_rng(seed)
+    d = (4.0 + 0.1 * rng.standard_normal((B, nzi, q))
+         + 1j * 0.5 * rng.standard_normal((B, nzi, q))).astype(np.complex64)
+    oy = (1.0 + 0.1 * rng.standard_normal((B, nzi, q - 1))).astype(np.float32)
+    oz = (1.0 + 0.1 * rng.standard_normal((B, nzi - 1, q))).astype(np.float32)
+    b = (rng.standard_normal((B, nzi, q))
+         + 1j * rng.standard_normal((B, nzi, q))).astype(np.complex64)
+    return [torch.as_tensor(a) for a in (d, oy, oz, b)]
+
+
+@pytest.mark.parametrize("B,nzi,q,seed", [(3, 5, 20, 0), (4, 1, 7, 1),
+                                          (2, 6, 95, 2), (2, 3, 128, 3)])
+def test_kernels_match_plain(cuda_device, B, nzi, q, seed):
+    d, oy, oz, b = (t.to(cuda_device) for t in _system(B, nzi, q, seed))
+    FF.reset_launches()
+    G = FF.schur_factor(d, oy, oz)
+    y = FF.bt_sweep_fwd(G, oz, b)
+    x = FF.bt_sweep_bwd(G, oz, y)
+    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 1, "bt_sweep_bwd": 1}
+    assert relerr(G, FF.schur_factor_plain(d, oy, oz)) < FACTOR_TOL
+    assert relerr(y, FF.bt_sweep_fwd_plain(G, oz, b)) < SWEEP_TOL
+    assert relerr(x, FF.bt_sweep_bwd_plain(G, oz, y)) < SWEEP_TOL
+
+
+def test_launch_checks(cuda_device):
+    d, oy, oz, b = (t.to(cuda_device) for t in _system(2, 3, 8, 1))
+    with pytest.raises(ValueError):
+        FF.schur_factor(d.to(torch.complex128), oy, oz)
+    with pytest.raises(ValueError):
+        FF.schur_factor(d.transpose(1, 2).contiguous().transpose(1, 2), oy, oz)
+    with pytest.raises(ValueError):
+        FF.bt_sweep_fwd(FF.schur_factor(d, oy, oz), oz.cpu(), b)
+    with pytest.raises(ValueError):
+        FF.schur_factor(*(t.to(cuda_device) for t in _system(1, 2, 130, 0)[:3]))
+
+
+def test_fused_gradient_on_card_matches_cpu(cuda_device):
+    """The tiny flagship's fused potential and gradient on the card (the
+    kernels) against the same config on the CPU (the plain versions)."""
+    cfg = SolveConfig(torch.complex64, 6, "fused")
+    gpu, m0 = entry.flagship_problem(tiny=True, device=None)
+    assert gpu.fwd.cfg == cfg and gpu.device.type == "cuda"
+    cpu, _ = entry.flagship_problem(tiny=True, device="cpu", cfg=cfg)
+    rng = np.random.default_rng(0)
+    m = torch.as_tensor(m0 + 0.1 * rng.standard_normal((2, len(m0))),
+                        dtype=torch.float32)
+    FF.reset_launches()
+    (U, _), g = make_potential_vg(gpu, 1.0)(m.to(cuda_device), m.to(cuda_device))
+    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+    (Uc, _), gc = make_potential_vg(cpu, 1.0)(m, m)
+    assert relerr(U.cpu(), Uc) < 1e-4
+    g, gc = g.cpu().double(), gc.double()
+    cos = (g * gc).sum(-1) / (g.norm(dim=-1) * gc.norm(dim=-1))
+    assert float(cos.min()) > 0.9999
