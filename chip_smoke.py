@@ -12,7 +12,9 @@ Phases, each of which exits non-zero on failure:
 3. each kernel against its plain PyTorch version at the shapes of the main
    path (the equilibrated flagship operator at C = 8 chains: B = 176 systems,
    nzi = 55 z-lines, q = 95), with times, the card's bound for the same
-   work, and a library yardstick;
+   work, its share of that bound, and a library yardstick; then the factor
+   and the backward sweep, which are compiled per padded width, at the
+   edges of their templates (random diagonally dominant systems);
 4. the main path: one batched potential value-and-grad of the flagship at
    full width, C = 8, on the fused kernels, with the launch counts of that
    run, held against the port's own complex128 thomas engine on the card;
@@ -41,6 +43,8 @@ FACTOR_REL_TOL = 1e-4  # f32 factor, other rounding order over 55 lines
 SWEEP_REL_TOL = 1e-5   # f32 sweeps given the same G
 U_REL_TOL = 1e-3       # fused complex64 vs complex128 potential (see phase 4)
 GRAD_COS_MIN = 0.999
+# (B, nzi, q): the coprod2 width, Q_MAX, and more blocks than two waves
+EDGE_SHAPES = ((4, 6, 75), (3, 4, 128), (300, 2, 32))
 
 # Published peaks (NVIDIA data sheets, dense, no sparsity): float32 on the
 # CUDA cores, and device-memory bandwidth, by the name torch reports.
@@ -159,36 +163,82 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
     x = FF.bt_sweep_bwd(G, oz, y_plain)
     x_plain = FF.bt_sweep_bwd_plain(G, oz, y_plain)
     torch.cuda.synchronize()
-    sw_flops = 8.0 * q * q * nzi * B
-    sw_bytes = 8 * B * nzi * q * q + 4 * B * (nzi - 1) * q + 2 * 8 * B * nzi * q
-    for name, got, want, kern, plain, arg in (
-            ("bt_sweep_fwd", y, y_plain, FF.bt_sweep_fwd, FF.bt_sweep_fwd_plain, b),
-            ("bt_sweep_bwd", x, x_plain, FF.bt_sweep_bwd, FF.bt_sweep_bwd_plain, y_plain)):
+    vec_bytes = 4 * B * (nzi - 1) * q + 2 * 8 * B * nzi * q   # offz, rhs, out
+    # the forward sweep reads every G_j, the backward one G_0 .. G_{nzi-2}
+    for name, got, want, kern, plain, arg, lines in (
+            ("bt_sweep_fwd", y, y_plain, FF.bt_sweep_fwd, FF.bt_sweep_fwd_plain, b, nzi),
+            ("bt_sweep_bwd", x, x_plain, FF.bt_sweep_bwd, FF.bt_sweep_bwd_plain, y_plain,
+             nzi - 1)):
         abs_e, rel_e = rel_err(torch, got, want)
         results[name] = dict(
             rel=rel_e, abs=abs_e, tol=SWEEP_REL_TOL,
             kernel_ms=time_ms(torch, lambda k=kern, a=arg: k(G, oz, a), 10),
             plain_ms=time_ms(torch, lambda p=plain, a=arg: p(G, oz, a), 10),
             library_ms=None, library="none: no single PyTorch call computes it",
-            flops=sw_flops, bytes=sw_bytes,
-            bound_formula="max(8 q^2 nzi B / fp32 peak, (G + offz + rhs + out bytes) / bandwidth)")
+            flops=8.0 * q * q * lines * B, bytes=8 * B * lines * q * q + vec_bytes,
+            bound_formula=f"max(8 q^2 {lines} B / fp32 peak, (G lines read + offz "
+                          "+ rhs + out bytes) / bandwidth)")
 
     for name, r in results.items():
         t_ops = r["flops"] / flops_peak * 1e3
         t_bytes = r["bytes"] / bw_peak * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        r["share_of_bound"] = r["bound_ms"] / r["kernel_ms"]
         say({"kernel": name, "max_rel_err": r["rel"], "max_abs_err": r["abs"],
              "rel_tol": r["tol"], "kernel_ms": r["kernel_ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "bound_formula": r["bound_formula"],
+             "bound_by": r["bound_by"], "share_of_bound": r["share_of_bound"],
+             "bound_formula": r["bound_formula"],
+             "achieved_GBps": r["bytes"] / r["kernel_ms"] / 1e6,
+             "achieved_TFLOPs": r["flops"] / r["kernel_ms"] / 1e9,
              "flops": r["flops"], "bytes": r["bytes"],
              "library_ms": r["library_ms"], "library": r["library"],
              "launches_per_eval": {"schur_factor": 1}.get(name, 14)})
     for name, r in results.items():
         if not r["rel"] <= r["tol"]:
             fail(f"{name}: max relative error {r['rel']:.3e} > {r['tol']:.0e}")
+    check_edges(torch, d.device)
     return results
+
+
+def random_system(torch, B, nzi, q, seed, dev):
+    """Diagonally dominant complex systems and a right-hand side, made
+    with numpy (as tests/test_torch_cuda.py): diag, offy, offz, rhs."""
+    rng = np.random.default_rng(seed)
+    d = (4.0 + 0.1 * rng.standard_normal((B, nzi, q))
+         + 1j * 0.5 * rng.standard_normal((B, nzi, q))).astype(np.complex64)
+    oy = (1.0 + 0.1 * rng.standard_normal((B, nzi, q - 1))).astype(np.float32)
+    oz = (1.0 + 0.1 * rng.standard_normal((B, nzi - 1, q))).astype(np.float32)
+    v = (rng.standard_normal((B, nzi, q))
+         + 1j * rng.standard_normal((B, nzi, q))).astype(np.complex64)
+    return [torch.as_tensor(a, device=dev) for a in (d, oy, oz, v)]
+
+
+def check_edges(torch, dev):
+    """The factor and the backward sweep against their plain versions at
+    the edges of their width templates."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+
+    for i, (B, nzi, q) in enumerate(EDGE_SHAPES):
+        d, oy, oz, v = random_system(torch, B, nzi, q, SEED + i, dev)
+        G = FF.schur_factor(d, oy, oz)
+        x = FF.bt_sweep_bwd(G, oz, v)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(torch.view_as_real(G)).all()
+                      and torch.isfinite(torch.view_as_real(x)).all())
+        _, g_rel = rel_err(torch, G, FF.schur_factor_plain(d, oy, oz))
+        _, x_rel = rel_err(torch, x, FF.bt_sweep_bwd_plain(G, oz, v))
+        say({"edge_shape": [B, nzi, q], "finite": finite,
+             "schur_factor_rel_err": g_rel, "bt_sweep_bwd_rel_err": x_rel,
+             "factor_plan": FF.schur_factor_plan(q)._asdict(),
+             "bwd_plan": FF.bt_sweep_bwd_plan(q)._asdict()})
+        if not finite:
+            fail(f"non-finite kernel output at shape {(B, nzi, q)}")
+        if not g_rel <= FACTOR_REL_TOL:
+            fail(f"schur_factor at {(B, nzi, q)}: relative error {g_rel:.3e}")
+        if not x_rel <= SWEEP_REL_TOL:
+            fail(f"bt_sweep_bwd at {(B, nzi, q)}: relative error {x_rel:.3e}")
 
 
 def profile_eval(torch, vg, m, m_ref) -> dict:
@@ -378,13 +428,14 @@ def main() -> None:
     source = {
         "schur_factor": "hmcmt2d_tpu_torch/csrc/schur_factor.cu",
         "bt_sweep_fwd": "hmcmt2d_tpu_torch/csrc/bt_sweep.cu",
-        "bt_sweep_bwd": "hmcmt2d_tpu_torch/csrc/bt_sweep.cu",
+        "bt_sweep_bwd": "hmcmt2d_tpu_torch/csrc/bt_sweep_bwd.cu",
     }
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k], "launches": counts[k],
                 "max_abs_err": r["abs"], "max_rel_err": r["rel"],
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "share_of_bound": r["share_of_bound"],
                 "library_ms": r["library_ms"]} for k, r in kres.items()]
     say({"kernels": kernels})
     say(smi_line())

@@ -13,15 +13,17 @@ __device__ __forceinline__ float2 cfma(float2 a, float2 b, float2 acc) {
                      acc.y + a.x * b.y + a.y * b.x);
 }
 
-// s - a * b
-__device__ __forceinline__ float2 cfms(float2 s, float2 a, float2 b) {
-  return make_float2(s.x - (a.x * b.x - a.y * b.y),
-                     s.y - (a.x * b.y + a.y * b.x));
-}
-
-__device__ __forceinline__ float2 cinv(float2 a) {
-  const float d = a.x * a.x + a.y * a.y;
-  return make_float2(a.x / d, -a.y / d);
+// 1 / z by Smith's algorithm, the complex division of PyTorch (c10::complex)
+// applied to 1 / z, so that a pivot inverse rounds as in the plain versions
+__device__ __forceinline__ float2 crcp(float2 z) {
+  if (fabsf(z.x) >= fabsf(z.y)) {
+    const float rat = z.y / z.x;
+    const float scl = 1.f / (z.x + z.y * rat);
+    return make_float2(scl, -rat * scl);
+  }
+  const float rat = z.x / z.y;
+  const float scl = 1.f / (z.y + z.x * rat);
+  return make_float2(rat * scl, -scl);
 }
 
 __device__ __forceinline__ float2 warp_csum(float2 v) {

@@ -5,120 +5,260 @@
 // where T_j is the tridiagonal diagonal block of z-line j (diagonal diag_j,
 // off-diagonal entries -offy_j) and c_{j-1} = offz_{j-1} the diagonal
 // z-coupling.  Each line is inverted in place by unpivoted complex
-// Gauss-Jordan, which is stable here only because the caller passes the
-// equilibrated operator (real part positive definite, so every Schur
-// complement keeps a nonzero pivot).
+// Gauss-Jordan, rank-1 steps k = 0..q-1 in the order of the plain version
+// (ops/fused_factor.py gj_inverse_nopivot).  That is stable here only
+// because the caller passes the equilibrated operator (real part positive
+// definite, so every Schur complement keeps a nonzero pivot).
 //
 // Replaces the Pallas TPU kernel _factor_kernel
-// (hmcmt2d_tpu/ops/pallas_factor.py:137-194).  Design: one thread block per
-// system; the TPU's sequential z-line grid axis becomes a loop inside the
-// block, because blocks run in no order and cannot pass scratch to each
-// other.  S lives in dynamic shared memory (q*q complex floats: 72 KB at
-// q = 95, at most 128 KB at q = 128).  G_{j-1} is read back from global
-// memory, where this block wrote it one line earlier, so it is hot in L2.
+// (hmcmt2d_tpu/ops/pallas_factor.py:137-194).
 //
-// Bound: about q^3 complex multiply-adds per line (8 q^3 flops), on the
-// fp32 CUDA cores; at the flagship (q = 95, 55 lines, 176 systems) that is
-// 66 GFLOP against 0.7 GB of output, so operations bound it.  This first
-// version does every update through shared memory with two barriers per
-// pivot step and one block per system; it is right first, not fast.
+// Bound: q pivot steps of q^2 complex multiply-adds per line (8 q^3 flops)
+// on the fp32 CUDA cores: 66 GFLOP at the flagship (q = 95, 55 lines, 176
+// systems) against 0.7 GB of output, so operations bound it (0.99 ms at
+// 67 TFLOP/s).  One block per system: a block uses one SM's 128 fp32 lanes,
+// so with 176 systems on 132 SMs the floor is two systems on one SM, about
+// 1.5 ms.
+//
+// Design.  The first version (15.8 ms at the flagship on an H100 SXM) kept
+// S in shared memory: every update read and wrote S there, capping it near
+// 1/6 of the fp32 rate, with two barriers per pivot step and G_{j-1} read
+// back from global memory.  Here S lives in registers: row r belongs to warp
+// r % 16 and column c to lane c % 32, so each of the 512 threads holds an
+// RT x CT complex tile (6 x 3 at q = 95), indexed only by unrolled constant
+// loops.  Only the pivot row (scaled by 1/pivot) and the pivot column go
+// through shared memory, double-buffered: after step k the warp that holds
+// row k+1 and the lanes that hold column k+1 publish them into the other
+// buffer and clear them in registers, so each step is one barrier and one
+// uniform rank-1 update, each thread reading RT + CT shared values for its
+// RT * CT updates.  At the end of a line each thread stores its part of G_j
+// from registers (neighbouring lanes on neighbouring columns) and forms the
+// next S = T - c_r c_c G_j in place: G is never read back.  Every product
+// is rounded where the plain version rounds it (the pivot inverse by the
+// same complex division), so the two agree to the last bit on the card.
+//
+// Registers (nvcc 12.8, -Xptxas -v, as scripts/torch_kernel_scaling.py
+// prints them): 64 a thread for q <= 96, where two blocks share an SM
+// (the 6 x 3 tile spills 84 bytes), 128 at q = 128, one block an SM, no
+// spills.  What bounds it now is the chain of each pivot step, not the
+// fp32 rate: the warp that holds row k+1 issues its whole update, then the
+// shuffle, the two divisions of the exact pivot inverse and the stores,
+// before the barrier can open; and with 64 registers the compiler keeps
+// one temporary for the update.  A block alone takes as long as one on
+// each SM.  The launch plan (ops/fused_factor.py schur_factor_plan) picks
+// the tile from q padded to 32, 64, 96 or 128.
 
 #include <cuda_runtime.h>
 #include "cplx.cuh"
 
 namespace {
 
-constexpr int TX = 32;
-constexpr int TY = 16;
+constexpr int TX = 32;   // lanes: column c = lane + TX * cc
+constexpr int TY = 16;   // warps: row r = warp + TY * i
+constexpr int THREADS = TX * TY;
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(TX * TY)
+// The row of pivot step k, held by warp k % TY (row: its tile row, after
+// the step's update): write it scaled by 1/pivot into rowk, entry k being
+// 1/pivot itself.
+template <int CT>
+__device__ __forceinline__ void publish_row(const float2 (&row)[CT], int k,
+                                            float2* rowk, int lane, int q) {
+  const int kc = k / TX;
+  float2 d = row[0];
+#pragma unroll
+  for (int cc = 1; cc < CT; ++cc) d = (cc == kc) ? row[cc] : d;
+  d.x = __shfl_sync(FULL, d.x, k % TX);
+  d.y = __shfl_sync(FULL, d.y, k % TX);
+  const float2 p = crcp(d);
+#pragma unroll
+  for (int cc = 0; cc < CT; ++cc) {
+    const int c = lane + TX * cc;
+    if (c < q) rowk[c] = (c == k) ? p : cmul(row[cc], p);
+  }
+}
+
+// The column of pivot step k, held by lane k % TX of every warp: write it
+// into colk, entry k being -1, and clear it in registers.
+template <int RT, int CT>
+__device__ __forceinline__ void publish_col(float2 (&S)[RT][CT], int k,
+                                            float2* colk, int lane, int warp,
+                                            int q) {
+#pragma unroll
+  for (int cc = 0; cc < CT; ++cc)
+    if (cc == k / TX) {
+      if (lane == k % TX) {
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const int r = warp + TY * i;
+          if (r < q) colk[r] = (r == k) ? make_float2(-1.f, 0.f) : S[i][cc];
+          S[i][cc] = make_float2(0.f, 0.f);
+        }
+      }
+    }
+}
+
+// Publish pivot step k into the pivot buffers and clear row and column k in
+// registers.  With row and column k cleared, the step is one rank-1 update
+// S - column * row for every entry: row k becomes the scaled row, column k
+// becomes -column / pivot, and entry (k, k) becomes 1/pivot, as in
+// gj_inverse_nopivot.  Every branch on k is uniform across a warp except
+// the lane test of the column.
+template <int RT, int CT>
+__device__ __forceinline__ void publish(float2 (&S)[RT][CT], int k,
+                                        float2* rowk, float2* colk,
+                                        int lane, int warp, int q) {
+  const int ki = k / TY;
+  if (warp == k % TY) {
+    float2 row[CT];
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) {
+      row[cc] = S[0][cc];
+#pragma unroll
+      for (int i = 1; i < RT; ++i) row[cc] = (i == ki) ? S[i][cc] : row[cc];
+    }
+    publish_row(row, k, rowk, lane, q);
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      if (i == ki) {
+#pragma unroll
+        for (int cc = 0; cc < CT; ++cc) S[i][cc] = make_float2(0.f, 0.f);
+      }
+  }
+  publish_col(S, k, colk, lane, warp, q);
+}
+
+// s - a * b with the product rounded first, as the plain version's
+// A - col * row
+__device__ __forceinline__ float2 upd(float2 s, float2 a, float2 b) {
+  const float2 t = cmul(a, b);
+  return make_float2(s.x - t.x, s.y - t.y);
+}
+
+template <int RT, int CT, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
 schur_factor_kernel(const float2* __restrict__ diag,  // (B, nzi, q)
                     const float* __restrict__ offy,   // (B, nzi, q-1)
                     const float* __restrict__ offz,   // (B, nzi-1, q)
                     float2* __restrict__ G,           // (B, nzi, q, q)
                     int nzi, int q) {
+  constexpr int QP = RT * TY;
+  static_assert(QP == CT * TX, "the thread tile must cover a square");
   extern __shared__ float2 smem[];
-  float2* S = smem;           // q*q, row-major
-  float2* colk = S + q * q;   // pivot column before the step
-  float2* rowk = colk + q;    // pivot row scaled by 1/pivot
+  float2* rowk = smem;             // [2][QP] scaled pivot row
+  float2* colk = smem + 2 * QP;    // [2][QP] pivot column
+  float2* dg = smem + 4 * QP;      // [QP] diag of the line
+  float* oyv = reinterpret_cast<float*>(smem + 5 * QP);  // [QP] offy of the line
+  float* ozv = oyv + QP;           // [QP] offz between this line and the last
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TX + tx;
-  const int nthr = TX * TY;
-  const int qq = q * q;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * TX + lane;
   const size_t b = blockIdx.x;
+  const size_t qq = (size_t)q * q;
   const float2* d_b = diag + b * nzi * q;
   const float* oy_b = offy + b * nzi * (q - 1);
   const float* oz_b = offz + b * (nzi - 1) * q;
-  float2* G_b = G + b * nzi * (size_t)qq;
+  float2* G_b = G + b * nzi * qq;
+
+  // padded pivot entries stay zero, so padded rows and columns stay zero
+  for (int e = tid; e < 4 * QP; e += THREADS) smem[e] = make_float2(0.f, 0.f);
+
+  float2 S[RT][CT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) S[i][cc] = make_float2(0.f, 0.f);
 
   for (int j = 0; j < nzi; ++j) {
-    const float2* dj = d_b + (size_t)j * q;
-    const float* oyj = oy_b + (size_t)j * (q - 1);
-    // S = T_j - diag(c) G_{j-1} diag(c)
-    for (int e = tid; e < qq; e += nthr) {
-      const int r = e / q;
-      const int c = e - r * q;
-      float2 v = make_float2(0.f, 0.f);
-      if (r == c) v = dj[r];
-      else if (c == r + 1) v.x = -oyj[r];
-      else if (r == c + 1) v.x = -oyj[c];
-      if (j > 0) {
-        const float* cz = oz_b + (size_t)(j - 1) * q;
-        const float cc = cz[r] * cz[c];
-        const float2 g = G_b[(size_t)(j - 1) * qq + e];
-        v.x -= cc * g.x;
-        v.y -= cc * g.y;
-      }
-      S[e] = v;
+    for (int e = tid; e < q; e += THREADS) {
+      dg[e] = d_b[(size_t)j * q + e];
+      if (e < q - 1) oyv[e] = oy_b[(size_t)j * (q - 1) + e];
+      if (j > 0) ozv[e] = oz_b[(size_t)(j - 1) * q + e];
     }
     __syncthreads();
 
-    // in-place Gauss-Jordan inverse of S, no pivoting
-    for (int k = 0; k < q; ++k) {
-      const float2 p = cinv(S[k * q + k]);
-      for (int i = tid; i < q; i += nthr) {
-        colk[i] = S[i * q + k];
-        rowk[i] = cmul(S[k * q + i], p);
-      }
-      __syncthreads();
-      for (int r = ty; r < q; r += TY) {
-        const float2 cr = colk[r];
-        for (int c = tx; c < q; c += TX) {
-          float2 v;
-          if (r == k) {
-            v = (c == k) ? p : rowk[c];
-          } else if (c == k) {
-            const float2 t = cmul(cr, p);
-            v = make_float2(-t.x, -t.y);
-          } else {
-            v = cfms(S[r * q + c], cr, rowk[c]);
+    // S = T_j - diag(c) G_{j-1} diag(c), with G_{j-1} still in registers
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = warp + TY * i;
+#pragma unroll
+      for (int cc = 0; cc < CT; ++cc) {
+        const int c = lane + TX * cc;
+        float2 t = make_float2(0.f, 0.f);
+        if (r < q && c < q) {
+          if (r == c) t = dg[r];
+          else if (c == r + 1) t.x = -oyv[r];
+          else if (r == c + 1) t.x = -oyv[c];
+          if (j > 0) {   // products rounded apart, as the plain version
+            const float s = ozv[r] * ozv[c];
+            t.x -= __fmul_rn(s, S[i][cc].x);
+            t.y -= __fmul_rn(s, S[i][cc].y);
           }
-          S[r * q + c] = v;
         }
+        S[i][cc] = t;
       }
+    }
+    publish(S, 0, rowk, colk, lane, warp, q);
+    __syncthreads();
+
+    // in-place Gauss-Jordan inverse, no pivoting; one barrier per step
+    for (int k = 0; k < q; ++k) {
+      const float2* rk = rowk + (k & 1) * QP;
+      const float2* ck = colk + (k & 1) * QP;
+      float2 rw[CT];
+#pragma unroll
+      for (int cc = 0; cc < CT; ++cc) rw[cc] = rk[lane + TX * cc];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float2 a = ck[warp + TY * i];
+#pragma unroll
+        for (int cc = 0; cc < CT; ++cc) S[i][cc] = upd(S[i][cc], a, rw[cc]);
+      }
+      if (k + 1 < q)
+        publish(S, k + 1, rowk + ((k + 1) & 1) * QP, colk + ((k + 1) & 1) * QP,
+                lane, warp, q);
       __syncthreads();
     }
 
     float2* Gj = G_b + (size_t)j * qq;
-    for (int e = tid; e < qq; e += nthr) Gj[e] = S[e];
-    // the next line reads G_j back from global memory and rewrites S
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = warp + TY * i;
+#pragma unroll
+      for (int cc = 0; cc < CT; ++cc) {
+        const int c = lane + TX * cc;
+        if (r < q && c < q) Gj[(size_t)r * q + c] = S[i][cc];
+      }
+    }
   }
+}
+
+template <int RT, int CT, int MINB>
+int launch(const void* diag, const void* offy, const void* offz, void* G,
+           int B, int nzi, int q, int smem, cudaStream_t stream) {
+  schur_factor_kernel<RT, CT, MINB><<<B, dim3(TX, TY), smem, stream>>>(
+      (const float2*)diag, (const float*)offy, (const float*)offz, (float2*)G,
+      nzi, q);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// qp, threads and smem come from the launch plan (ops/fused_factor.py
+// schur_factor_plan); a plan this file does not compile is refused.
 extern "C" int hmc_schur_factor(const void* diag, const void* offy,
                                 const void* offz, void* G, int B, int nzi,
-                                int q, void* stream) {
-  const size_t smem = (size_t)(q * q + 2 * q) * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      schur_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  schur_factor_kernel<<<B, dim3(TX, TY), smem, (cudaStream_t)stream>>>(
-      (const float2*)diag, (const float*)offy, (const float*)offz,
-      (float2*)G, nzi, q);
-  return (int)cudaGetLastError();
+                                int q, int qp, int threads, int smem,
+                                void* stream) {
+  if (threads != THREADS || q < 1 || q > qp || smem != 48 * qp)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || nzi == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (qp) {
+    case 32: return launch<2, 1, 2>(diag, offy, offz, G, B, nzi, q, smem, s);
+    case 64: return launch<4, 2, 2>(diag, offy, offz, G, B, nzi, q, smem, s);
+    case 96: return launch<6, 3, 2>(diag, offy, offz, G, B, nzi, q, smem, s);
+    case 128: return launch<8, 4, 1>(diag, offy, offz, G, B, nzi, q, smem, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

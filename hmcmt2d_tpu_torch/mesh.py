@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .constants import MU0
+from .device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,11 +75,13 @@ class TensorMesh2D:
 
 
 def make_mesh(y_len, z_len, air_layer=None, origin=None,
-              device: torch.device | str = "cpu",
+              device: torch.device | str | None = None,
               dtype: torch.dtype = torch.float64) -> TensorMesh2D:
-    """Build a mesh from plain arrays; ``z_len`` must already include air."""
+    """Build a mesh from plain arrays; ``z_len`` must already include air.
+    ``device=None`` means the GPU, and raises without one."""
     air = np.zeros(0) if air_layer is None else np.asarray(air_layer)
     org = np.zeros(2) if origin is None else np.asarray(origin)
+    device = resolve_device(device)
 
     def t(a):
         return torch.tensor(np.array(a, np.float64), dtype=dtype,

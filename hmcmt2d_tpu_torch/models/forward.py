@@ -24,21 +24,11 @@ import numpy as np
 import torch
 
 from ..constants import MU0
+from ..device import resolve_device  # noqa: F401  (re-exported)
 from .. import mesh as M
 from ..ops import mt1d
 from ..ops import solver as S
 from .data import MTData
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; ``None`` means the GPU, and raises when
-    there is none (entry points never carry on quietly on the CPU)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 @dataclasses.dataclass(frozen=True)

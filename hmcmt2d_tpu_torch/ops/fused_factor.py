@@ -25,7 +25,11 @@ rows) existed because Pallas on a TPU has no complex type and tiles by
 (8, 128).  The kernels here take complex64 tensors as interleaved float2:
 G is (B, nzi, q, q) complex64, C-contiguous, one system per thread block.
 The source notes in ``csrc/*.cu`` say what bounds each kernel on the card
-and what its design does about it.
+and what its design does about it.  ``schur_factor`` and ``bt_sweep_bwd``
+are compiled for a few padded widths; their launch plans
+(:func:`schur_factor_plan`, :func:`bt_sweep_bwd_plan`) pick the variant,
+threads, shared memory and ring depth for a given q, and the C entry
+points refuse a plan they were not compiled for.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ import torch
 
 from . import kernel_build
 
-Q_MAX = 128   # largest block: q*q complex floats must fit in shared memory
+Q_MAX = 128   # widest line the kernels are compiled for
+SMEM_PER_BLOCK = 232_448   # dynamic shared memory a block may ask for (H100)
 
 
 def _stream() -> int:
@@ -64,6 +69,76 @@ def _on_cpu(t: torch.Tensor) -> bool:
     """CPU tensors take the plain version; every other tensor the kernel,
     which raises unless the tensor lies on a GPU and the kernels build."""
     return t.device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# launch plans
+# ---------------------------------------------------------------------------
+
+class LaunchPlan(NamedTuple):
+    """How a kernel is launched for lines of width q.  The thread block is
+    ``threads = (lanes, warps)``; a ``tile`` of (rows, columns) of a line
+    padded to ``qp`` falls to each thread (the factor) or to each warp and
+    lane (the sweep); ``ring`` is the sweep's number of G slots (0 for the
+    factor)."""
+
+    q: int
+    qp: int
+    threads: tuple[int, int]
+    tile: tuple[int, int]
+    smem_bytes: int
+    ring: int
+    blocks_per_sm: int
+
+    @property
+    def n_threads(self) -> int:
+        return self.threads[0] * self.threads[1]
+
+
+LANES, WARPS = 32, 16
+COMPLEX_BYTES = 8
+BWD_VEC_LINES = 3   # lines of y and c in the sweep's ring (csrc/bt_sweep_bwd.cu E)
+
+
+def _padded(q: int) -> int:
+    if not 1 <= q <= Q_MAX:
+        raise ValueError(f"the kernels support 1 <= q <= {Q_MAX}, got {q}")
+    return -(-q // 32) * 32
+
+
+def schur_factor_plan(q: int) -> LaunchPlan:
+    """Plan of ``csrc/schur_factor.cu``: S in registers, row r on warp
+    r % 16 and column c on lane c % 32, so a thread holds a (qp/16, qp/32)
+    complex tile.  Shared memory holds the double-buffered pivot row and
+    column (4 qp complex) and the staged line: diag (qp complex), offy and
+    offz (qp floats each).  Two blocks per SM up to qp = 96 (at most 64
+    registers a thread), one at qp = 128 (a 64-register tile).  The C entry
+    point refuses another plan."""
+    qp = _padded(q)
+    smem = 5 * qp * COMPLEX_BYTES + 2 * qp * 4
+    return LaunchPlan(q, qp, (LANES, WARPS), (qp // WARPS, qp // LANES),
+                      smem, 0, 2 if qp <= 96 else 1)
+
+
+def bt_sweep_bwd_plan(q: int) -> LaunchPlan:
+    """Plan of ``csrc/bt_sweep_bwd.cu``: 16 warps multiply, warp w rows
+    qp/16 w .. qp/16 (w + 1) - 1 of each line and lane l columns l + 32 c;
+    a 17th warp fetches.  G streams through a ring of ``ring`` chunk slots
+    in shared memory, one TMA bulk copy a chunk: a line up to qp = 96, half
+    a line at 128 (three lines would not fit).  A slot holds its rows x qp +
+    2 complex (a chunk starting 8 bytes off a 16-byte boundary sits one
+    element in) and has an mbarrier.  Beside them: the double-buffered carry
+    and BWD_VEC_LINES lines of y and c.  Three slots.  The C entry point
+    computes the same bytes and refuses another plan."""
+    qp = _padded(q)
+    rows = qp // WARPS                                 # rows per warp and line
+    chunk = qp if qp <= 96 else qp // 2                # rows per chunk
+    ring = 3
+    smem = (ring * ((chunk * qp + 2) * COMPLEX_BYTES + 8)
+            + 2 * qp * COMPLEX_BYTES                   # carry
+            + BWD_VEC_LINES * qp * (COMPLEX_BYTES + 4))   # y, c
+    return LaunchPlan(q, qp, (LANES, WARPS + 1), (rows, qp // LANES), smem,
+                      ring, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -114,10 +189,9 @@ def schur_factor(diag: torch.Tensor, offy: torch.Tensor,
     float32 couplings, contiguous), plain version for CPU tensors."""
     if _on_cpu(diag):
         return schur_factor_plain(diag, offy, offz)
-    lib = kernel_build.library()
     B, nzi, q = diag.shape
-    if q > Q_MAX:
-        raise ValueError(f"schur_factor supports q <= {Q_MAX}, got {q}")
+    plan = schur_factor_plan(q)
+    lib = kernel_build.library()
     dev = diag.device
     _check(diag, "diag", torch.complex64, (B, nzi, q), dev)
     _check(offy, "offy", torch.float32, (B, nzi, q - 1), dev)
@@ -125,6 +199,7 @@ def schur_factor(diag: torch.Tensor, offy: torch.Tensor,
     G = torch.empty((B, nzi, q, q), dtype=torch.complex64, device=dev)
     err = lib.hmc_schur_factor(diag.data_ptr(), offy.data_ptr(),
                                offz.data_ptr(), G.data_ptr(), B, nzi, q,
+                               plan.qp, plan.n_threads, plan.smem_bytes,
                                _stream())
     _raise_on(err, "schur_factor")
     schur_factor.launches += 1
@@ -164,7 +239,7 @@ def bt_sweep_bwd_plain(G: torch.Tensor, offz: torch.Tensor,
 
 
 def _sweep(name: str, G: torch.Tensor, offz: torch.Tensor,
-           v: torch.Tensor) -> torch.Tensor:
+           v: torch.Tensor, *plan_args: int) -> torch.Tensor:
     lib = kernel_build.library()
     B, nzi, q, _ = G.shape
     dev = G.device
@@ -174,7 +249,7 @@ def _sweep(name: str, G: torch.Tensor, offz: torch.Tensor,
     out = torch.empty((B, nzi, q), dtype=torch.complex64, device=dev)
     err = getattr(lib, "hmc_" + name)(G.data_ptr(), offz.data_ptr(),
                                       v.data_ptr(), out.data_ptr(), B, nzi,
-                                      q, _stream())
+                                      q, *plan_args, _stream())
     _raise_on(err, name)
     return out
 
@@ -194,7 +269,11 @@ def bt_sweep_bwd(G: torch.Tensor, offz: torch.Tensor,
     """Backward sweep: CUDA kernel for CUDA tensors, plain version on CPU."""
     if _on_cpu(G):
         return bt_sweep_bwd_plain(G, offz, y)
-    out = _sweep("bt_sweep_bwd", G, offz, y)
+    plan = bt_sweep_bwd_plan(G.shape[-1])
+    if G.data_ptr() % 16:
+        raise ValueError("bt_sweep_bwd needs G 16-byte aligned (TMA bulk copies)")
+    out = _sweep("bt_sweep_bwd", G, offz, y, plan.qp, plan.ring,
+                 plan.n_threads, plan.smem_bytes)
     bt_sweep_bwd.launches += 1
     return out
 

@@ -23,6 +23,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class MassMatrix(NamedTuple):
     """Diagonal or dense-Cholesky mass matrix (setMassMatrix).  Diagonal:
@@ -50,13 +52,16 @@ class MassMatrix(NamedTuple):
         return 0.5 * (p * self.apply_inv(p)).sum(dim=-1)
 
 
-def identity_mass(n_param: int, dtype=torch.float64, device="cpu") -> MassMatrix:
-    one = torch.ones(n_param, dtype=dtype, device=device)
+def identity_mass(n_param: int, dtype=torch.float64, device=None) -> MassMatrix:
+    """Unit mass; ``device=None`` means the GPU, and raises without one."""
+    one = torch.ones(n_param, dtype=dtype, device=resolve_device(device))
     return MassMatrix(sqrt_m=one, inv_m=one, diagonal=True)
 
 
-def dense_mass(Wm: np.ndarray, dtype=torch.float64, device="cpu") -> MassMatrix:
-    """Non-diagonal mass M = Wm via its dense Cholesky factor."""
+def dense_mass(Wm: np.ndarray, dtype=torch.float64, device=None) -> MassMatrix:
+    """Non-diagonal mass M = Wm via its dense Cholesky factor; ``device=None``
+    means the GPU, and raises without one."""
+    device = resolve_device(device)
     L = np.linalg.cholesky(np.asarray(Wm))
     Linv = np.linalg.inv(L)
 

@@ -44,8 +44,12 @@ def _system(B, nzi, q, seed):
     return [torch.as_tensor(a) for a in (d, oy, oz, b)]
 
 
-@pytest.mark.parametrize("B,nzi,q,seed", [(3, 5, 20, 0), (4, 1, 7, 1),
-                                          (2, 6, 95, 2), (2, 3, 128, 3)])
+@pytest.mark.parametrize("B,nzi,q,seed", [
+    (3, 5, 20, 0), (4, 1, 7, 1), (2, 6, 95, 2), (2, 3, 128, 3),
+    # the edges of the width templates: the coprod2 width, Q_MAX, more
+    # blocks than two waves, and the first width of each larger tile
+    (4, 6, 75, 4), (3, 4, 128, 5), (300, 2, 32, 6),
+    (2, 3, 33, 7), (2, 3, 65, 8), (2, 3, 97, 9)])
 def test_kernels_match_plain(cuda_device, B, nzi, q, seed):
     d, oy, oz, b = (t.to(cuda_device) for t in _system(B, nzi, q, seed))
     FF.reset_launches()
@@ -68,6 +72,12 @@ def test_launch_checks(cuda_device):
         FF.bt_sweep_fwd(FF.schur_factor(d, oy, oz), oz.cpu(), b)
     with pytest.raises(ValueError):
         FF.schur_factor(*(t.to(cuda_device) for t in _system(1, 2, 130, 0)[:3]))
+    # the backward sweep's bulk copies need G 16-byte aligned
+    G = FF.schur_factor(d, oy, oz)
+    shifted = torch.empty(G.numel() + 1, dtype=G.dtype, device=cuda_device)[1:]
+    shifted = shifted.view(G.shape).copy_(G)
+    with pytest.raises(ValueError, match="aligned"):
+        FF.bt_sweep_bwd(shifted, oz, b)
 
 
 def test_fused_gradient_on_card_matches_cpu(cuda_device):

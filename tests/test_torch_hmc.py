@@ -52,7 +52,7 @@ def case():
     tstate = TH.sample_chain_init(tvg, torch.as_tensor(m), m_ref)
     return dict(jstate=jstate, prop=prop, p1=np.asarray(p1), p0=p0, m=m,
                 tvg=tvg, tstate=tstate, m_ref=m_ref,
-                tmass=TH.identity_mass(m.shape[1]), topts=TH.HMCOptions(**OPTS))
+                tmass=TH.identity_mass(m.shape[1], device="cpu"), topts=TH.HMCOptions(**OPTS))
 
 
 def test_chain_init_matches_jax(case):
@@ -129,13 +129,13 @@ def test_mass_matrices_match_jax():
     A = rng.standard_normal((4, 4))
     Wm = A @ A.T + 4 * np.eye(4)
     p = rng.standard_normal((3, 4))
-    for jmass, tmass in ((JH.dense_mass(Wm), TH.dense_mass(Wm)),
-                         (JH.identity_mass(4), TH.identity_mass(4))):
+    for jmass, tmass in ((JH.dense_mass(Wm), TH.dense_mass(Wm, device="cpu")),
+                         (JH.identity_mass(4), TH.identity_mass(4, device="cpu"))):
         assert relerr(tmass.apply_inv(torch.as_tensor(p)),
                       jmass.apply_inv(jnp.asarray(p))) < 1e-12
         assert relerr(tmass.kinetic(torch.as_tensor(p)),
                       jmass.kinetic(jnp.asarray(p))) < 1e-12
-    draws = TH.dense_mass(Wm).draw(TH.generator(0, 1, 0, "cpu"), (20000, 4))
+    draws = TH.dense_mass(Wm, device="cpu").draw(TH.generator(0, 1, 0, "cpu"), (20000, 4))
     assert draws.abs().max() <= 2.5 * np.abs(np.linalg.cholesky(Wm)).sum(1).max()
     np.testing.assert_allclose(np.cov(draws.numpy().T), Wm, rtol=0.15,
                                atol=0.1 * np.abs(Wm).max())
@@ -155,7 +155,7 @@ def test_segmented_run_is_bit_exact():
     vg = _gaussian_vg([1.0, -2.0, 0.5], [0.25, 1.0, 4.0])
     opts = TH.HMCOptions(dt=0.3, steps_lo=2, steps_hi=5, log_sig_lo=-50.0,
                          log_sig_hi=50.0, reg_param=0.0)
-    mass = TH.identity_mass(3)
+    mass = TH.identity_mass(3, device="cpu")
     m0 = torch.zeros(4, 3, dtype=torch.float64)
     one = TH.run_hmc(vg, opts, mass, m0, m0, 6, seed=7, sample_dtype=torch.float64)
     a = TH.run_hmc(vg, opts, mass, m0, m0, 2, seed=7, sample_dtype=torch.float64)
@@ -181,7 +181,7 @@ def test_nonfinite_gradient_proposal_never_accepted():
     opts = TH.HMCOptions(dt=0.4, steps_lo=2, steps_hi=3, log_sig_lo=-50.0,
                          log_sig_hi=50.0, reg_param=1.0)
     m0 = torch.full((3, 4), -1.0, dtype=torch.float64)
-    res = TH.run_hmc(vg, opts, TH.identity_mass(4), m0, m0, 40, seed=0,
+    res = TH.run_hmc(vg, opts, TH.identity_mass(4, device="cpu"), m0, m0, 40, seed=0,
                      sample_dtype=torch.float64)
     assert torch.isfinite(res.final.m).all() and torch.isfinite(res.final.grad).all()
     assert torch.isfinite(res.models).all()

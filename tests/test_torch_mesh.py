@@ -31,7 +31,8 @@ def _meshes(ny=9, nz=7):
     air = dz[:2][::-1]
     origin = [dy.sum() / 2, dz[:2].sum()]
     return (JM.make_mesh(dy, dz, air_layer=air, origin=origin),
-            TM.make_mesh(dy, dz, air_layer=air, origin=origin))
+            TM.make_mesh(dy, dz, air_layer=air, origin=origin,
+                          device="cpu"))
 
 
 def _sigma(nz, ny, chains=2, seed=0):

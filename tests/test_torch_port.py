@@ -16,10 +16,11 @@ torch.set_num_threads(1)
 
 import hmcmt2d_tpu_torch  # noqa: E402
 from __graft_entry__ import _flagship_problem  # noqa: E402
-from hmcmt2d_tpu_torch import convert, entry  # noqa: E402
+from hmcmt2d_tpu_torch import convert, entry, make_mesh  # noqa: E402
 from hmcmt2d_tpu_torch.models import forward as TF  # noqa: E402
 from hmcmt2d_tpu_torch.models import posterior as TP  # noqa: E402
-from hmcmt2d_tpu_torch.sampler.hmc import ChainState  # noqa: E402
+from hmcmt2d_tpu_torch.sampler.hmc import (ChainState, dense_mass,  # noqa: E402
+                                           identity_mass)
 from tests.torch_parity import problem_arrays  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -96,6 +97,22 @@ def test_entry_points_without_gpu_raise(monkeypatch, jax_tiny):
         TP.build_inverse_problem(tprob.mesh, tprob.fwd.data, tprob.obs,
                                  1.0 / tprob.weights, np.ones(tprob.mesh.n_cell))
     assert TF.default_config("cpu") == TF.SolveConfig(torch.complex128, 0, "thomas")
+
+
+@pytest.mark.parametrize("make", [
+    lambda dev: make_mesh([1.0, 2.0], [1.0, 1.0], device=dev),
+    lambda dev: identity_mass(3, device=dev),
+    lambda dev: dense_mass(np.eye(3), device=dev),
+], ids=["make_mesh", "identity_mass", "dense_mass"])
+def test_constructors_without_gpu_raise(monkeypatch, make):
+    """The public constructors default to the GPU too: without one and
+    without a device they raise; device='cpu' still builds on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make(None)
+    built = make("cpu")
+    tensors = (built.y_len,) if hasattr(built, "y_len") else built[:2]
+    assert all(t.device.type == "cpu" for t in tensors)
 
 
 def test_gpu_default_config_is_fused(monkeypatch):

@@ -25,7 +25,7 @@ TOL = 1e-10
 def _systems(mode, freq=1.0, seed=0):
     dy, dz = small_mesh(10, 8)
     jm = JM.make_mesh(dy, dz)
-    tm = TM.make_mesh(dy, dz)
+    tm = TM.make_mesh(dy, dz, device="cpu")
     rng = np.random.default_rng(seed)
     sig = np.exp(rng.uniform(np.log(1e-3), np.log(1.0), (2, tm.nz, tm.ny)))
     sig[:, :2] = 1e-8
