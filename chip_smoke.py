@@ -12,9 +12,9 @@ Phases, each of which exits non-zero on failure:
 3. each kernel against its plain PyTorch version at the shapes of the main
    path (the equilibrated flagship operator at C = 8 chains: B = 176 systems,
    nzi = 55 z-lines, q = 95), with times, the card's bound for the same
-   work, its share of that bound, and a library yardstick; then the factor
-   and the backward sweep, which are compiled per padded width, at the
-   edges of their templates (random diagonally dominant systems);
+   work, its share of that bound, and a library yardstick; then all three,
+   which are compiled per padded width, at the edges of their templates and
+   at the end of G (random diagonally dominant systems);
 4. the main path: one batched potential value-and-grad of the flagship at
    full width, C = 8, on the fused kernels, with the launch counts of that
    run, held against the port's own complex128 thomas engine on the card;
@@ -43,8 +43,10 @@ FACTOR_REL_TOL = 1e-4  # f32 factor, other rounding order over 55 lines
 SWEEP_REL_TOL = 1e-5   # f32 sweeps given the same G
 U_REL_TOL = 1e-3       # fused complex64 vs complex128 potential (see phase 4)
 GRAD_COS_MIN = 0.999
-# (B, nzi, q): the coprod2 width, Q_MAX, and more blocks than two waves
-EDGE_SHAPES = ((4, 6, 75), (3, 4, 128), (300, 2, 32))
+# (B, nzi, q): the coprod2 width, Q_MAX, more blocks than two waves, and
+# odd q with odd B nzi (the 16-byte span around G's last line would end
+# past G)
+EDGE_SHAPES = ((4, 6, 75), (3, 4, 128), (300, 2, 32), (1, 1, 95), (3, 5, 75))
 
 # Published peaks (NVIDIA data sheets, dense, no sparsity): float32 on the
 # CUDA cores, and device-memory bandwidth, by the name torch reports.
@@ -216,29 +218,34 @@ def random_system(torch, B, nzi, q, seed, dev):
 
 
 def check_edges(torch, dev):
-    """The factor and the backward sweep against their plain versions at
-    the edges of their width templates."""
+    """The factor and both sweeps against their plain versions at the
+    edges of their width templates."""
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
 
     for i, (B, nzi, q) in enumerate(EDGE_SHAPES):
         d, oy, oz, v = random_system(torch, B, nzi, q, SEED + i, dev)
         G = FF.schur_factor(d, oy, oz)
+        y = FF.bt_sweep_fwd(G, oz, v)
         x = FF.bt_sweep_bwd(G, oz, v)
         torch.cuda.synchronize()
-        finite = bool(torch.isfinite(torch.view_as_real(G)).all()
-                      and torch.isfinite(torch.view_as_real(x)).all())
+        finite = all(bool(torch.isfinite(torch.view_as_real(t)).all())
+                     for t in (G, y, x))
         _, g_rel = rel_err(torch, G, FF.schur_factor_plain(d, oy, oz))
+        _, y_rel = rel_err(torch, y, FF.bt_sweep_fwd_plain(G, oz, v))
         _, x_rel = rel_err(torch, x, FF.bt_sweep_bwd_plain(G, oz, v))
         say({"edge_shape": [B, nzi, q], "finite": finite,
-             "schur_factor_rel_err": g_rel, "bt_sweep_bwd_rel_err": x_rel,
+             "schur_factor_rel_err": g_rel, "bt_sweep_fwd_rel_err": y_rel,
+             "bt_sweep_bwd_rel_err": x_rel,
              "factor_plan": FF.schur_factor_plan(q)._asdict(),
+             "fwd_plan": FF.bt_sweep_fwd_plan(q)._asdict(),
              "bwd_plan": FF.bt_sweep_bwd_plan(q)._asdict()})
         if not finite:
             fail(f"non-finite kernel output at shape {(B, nzi, q)}")
         if not g_rel <= FACTOR_REL_TOL:
             fail(f"schur_factor at {(B, nzi, q)}: relative error {g_rel:.3e}")
-        if not x_rel <= SWEEP_REL_TOL:
-            fail(f"bt_sweep_bwd at {(B, nzi, q)}: relative error {x_rel:.3e}")
+        for name, rel in (("bt_sweep_fwd", y_rel), ("bt_sweep_bwd", x_rel)):
+            if not rel <= SWEEP_REL_TOL:
+                fail(f"{name} at {(B, nzi, q)}: relative error {rel:.3e}")
 
 
 def profile_eval(torch, vg, m, m_ref) -> dict:
@@ -427,7 +434,7 @@ def main() -> None:
     }
     source = {
         "schur_factor": "hmcmt2d_tpu_torch/csrc/schur_factor.cu",
-        "bt_sweep_fwd": "hmcmt2d_tpu_torch/csrc/bt_sweep.cu",
+        "bt_sweep_fwd": "hmcmt2d_tpu_torch/csrc/bt_sweep_fwd.cu",
         "bt_sweep_bwd": "hmcmt2d_tpu_torch/csrc/bt_sweep_bwd.cu",
     }
     kernels = [{"name": k, "route": "cuda", "source": source[k],

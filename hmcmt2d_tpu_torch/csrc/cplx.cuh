@@ -25,12 +25,3 @@ __device__ __forceinline__ float2 crcp(float2 z) {
   const float scl = 1.f / (z.y + z.x * rat);
   return make_float2(rat * scl, -scl);
 }
-
-__device__ __forceinline__ float2 warp_csum(float2 v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v.x += __shfl_down_sync(0xffffffffu, v.x, off);
-    v.y += __shfl_down_sync(0xffffffffu, v.y, off);
-  }
-  return v;
-}

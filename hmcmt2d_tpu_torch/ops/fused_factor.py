@@ -24,12 +24,13 @@ The TPU layout (split real/imaginary planes, q padded to 128, q-tight
 rows) existed because Pallas on a TPU has no complex type and tiles by
 (8, 128).  The kernels here take complex64 tensors as interleaved float2:
 G is (B, nzi, q, q) complex64, C-contiguous, one system per thread block.
-The source notes in ``csrc/*.cu`` say what bounds each kernel on the card
-and what its design does about it.  ``schur_factor`` and ``bt_sweep_bwd``
-are compiled for a few padded widths; their launch plans
-(:func:`schur_factor_plan`, :func:`bt_sweep_bwd_plan`) pick the variant,
-threads, shared memory and ring depth for a given q, and the C entry
-points refuse a plan they were not compiled for.
+The source notes in ``csrc/*.cu`` (``schur_factor.cu``, ``bt_sweep_fwd.cu``,
+``bt_sweep_bwd.cu``) say what bounds each kernel on the card and what its
+design does about it.  Each kernel is compiled for a few padded widths; its
+launch plan (:func:`schur_factor_plan`, :func:`bt_sweep_fwd_plan`,
+:func:`bt_sweep_bwd_plan`) picks the variant, threads, shared memory and
+ring depth for a given q, and the C entry points refuse a plan they were
+not compiled for.
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ from . import kernel_build
 
 Q_MAX = 128   # widest line the kernels are compiled for
 SMEM_PER_BLOCK = 232_448   # dynamic shared memory a block may ask for (H100)
+# shared memory of an H100 SM (228 KB), of which 1 KB is reserved for each
+# resident block (CUDA C++ Programming Guide, compute capability 9.0)
+SMEM_PER_SM = 233_472
 
 
 def _stream() -> int:
@@ -97,7 +101,7 @@ class LaunchPlan(NamedTuple):
 
 LANES, WARPS = 32, 16
 COMPLEX_BYTES = 8
-BWD_VEC_LINES = 3   # lines of y and c in the sweep's ring (csrc/bt_sweep_bwd.cu E)
+SWEEP_VEC_LINES = 3   # lines of the rhs and c in a sweep's ring (csrc/bt_sweep_*.cu E)
 
 
 def _padded(q: int) -> int:
@@ -128,7 +132,7 @@ def bt_sweep_bwd_plan(q: int) -> LaunchPlan:
     a line at 128 (three lines would not fit).  A slot holds its rows x qp +
     2 complex (a chunk starting 8 bytes off a 16-byte boundary sits one
     element in) and has an mbarrier.  Beside them: the double-buffered carry
-    and BWD_VEC_LINES lines of y and c.  Three slots.  The C entry point
+    and SWEEP_VEC_LINES lines of y and c.  Three slots.  The C entry point
     computes the same bytes and refuses another plan."""
     qp = _padded(q)
     rows = qp // WARPS                                 # rows per warp and line
@@ -136,9 +140,18 @@ def bt_sweep_bwd_plan(q: int) -> LaunchPlan:
     ring = 3
     smem = (ring * ((chunk * qp + 2) * COMPLEX_BYTES + 8)
             + 2 * qp * COMPLEX_BYTES                   # carry
-            + BWD_VEC_LINES * qp * (COMPLEX_BYTES + 4))   # y, c
+            + SWEEP_VEC_LINES * qp * (COMPLEX_BYTES + 4))   # y, c
     return LaunchPlan(q, qp, (LANES, WARPS + 1), (rows, qp // LANES), smem,
                       ring, 1)
+
+
+def bt_sweep_fwd_plan(q: int) -> LaunchPlan:
+    """Plan of ``csrc/bt_sweep_fwd.cu``: the layout of
+    :func:`bt_sweep_bwd_plan`, with b in place of y.  Half-line chunks at
+    qp = 96, which would fit two blocks an SM, were measured and lost
+    (csrc/bt_sweep_fwd.cu).  The C entry point computes the same bytes and
+    refuses another plan."""
+    return bt_sweep_bwd_plan(q)
 
 
 # ---------------------------------------------------------------------------
@@ -238,8 +251,10 @@ def bt_sweep_bwd_plain(G: torch.Tensor, offz: torch.Tensor,
     return torch.stack(xs[::-1], dim=1)
 
 
-def _sweep(name: str, G: torch.Tensor, offz: torch.Tensor,
-           v: torch.Tensor, *plan_args: int) -> torch.Tensor:
+def _sweep(name: str, plan: LaunchPlan, G: torch.Tensor, offz: torch.Tensor,
+           v: torch.Tensor) -> torch.Tensor:
+    if G.data_ptr() % 16:
+        raise ValueError(f"{name} needs G 16-byte aligned (TMA bulk copies)")
     lib = kernel_build.library()
     B, nzi, q, _ = G.shape
     dev = G.device
@@ -249,7 +264,8 @@ def _sweep(name: str, G: torch.Tensor, offz: torch.Tensor,
     out = torch.empty((B, nzi, q), dtype=torch.complex64, device=dev)
     err = getattr(lib, "hmc_" + name)(G.data_ptr(), offz.data_ptr(),
                                       v.data_ptr(), out.data_ptr(), B, nzi,
-                                      q, *plan_args, _stream())
+                                      q, plan.qp, plan.ring, plan.n_threads,
+                                      plan.smem_bytes, _stream())
     _raise_on(err, name)
     return out
 
@@ -259,7 +275,7 @@ def bt_sweep_fwd(G: torch.Tensor, offz: torch.Tensor,
     """Forward sweep: CUDA kernel for CUDA tensors, plain version on CPU."""
     if _on_cpu(G):
         return bt_sweep_fwd_plain(G, offz, b)
-    out = _sweep("bt_sweep_fwd", G, offz, b)
+    out = _sweep("bt_sweep_fwd", bt_sweep_fwd_plan(G.shape[-1]), G, offz, b)
     bt_sweep_fwd.launches += 1
     return out
 
@@ -269,11 +285,7 @@ def bt_sweep_bwd(G: torch.Tensor, offz: torch.Tensor,
     """Backward sweep: CUDA kernel for CUDA tensors, plain version on CPU."""
     if _on_cpu(G):
         return bt_sweep_bwd_plain(G, offz, y)
-    plan = bt_sweep_bwd_plan(G.shape[-1])
-    if G.data_ptr() % 16:
-        raise ValueError("bt_sweep_bwd needs G 16-byte aligned (TMA bulk copies)")
-    out = _sweep("bt_sweep_bwd", G, offz, y, plan.qp, plan.ring,
-                 plan.n_threads, plan.smem_bytes)
+    out = _sweep("bt_sweep_bwd", bt_sweep_bwd_plan(G.shape[-1]), G, offz, y)
     bt_sweep_bwd.launches += 1
     return out
 

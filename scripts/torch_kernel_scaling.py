@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Batch scaling of the port's redesigned kernels on one CUDA GPU.
 
-Times ``schur_factor`` and ``bt_sweep_bwd`` (the CUDA kernels of
-``hmcmt2d_tpu_torch/ops/fused_factor.py``) at the flagship line shape
-(nzi = 55 z-lines of q = 95 nodes) for B = 1, 44, 132 and 176 systems:
-one block alone, one block per SM, and the flagship's 176 systems on 132
-SMs.  Then it prints what ``nvcc -Xptxas -v`` reports for each kernel
+Times ``schur_factor``, ``bt_sweep_fwd`` and ``bt_sweep_bwd`` (the CUDA
+kernels of ``hmcmt2d_tpu_torch/ops/fused_factor.py``) at the flagship line
+shape (nzi = 55 z-lines of q = 95 nodes) for B = 1, 44, 132 and 176
+systems: one block alone, one block per SM, and the flagship's 176 systems
+on 132 SMs.  Then it prints what ``nvcc -Xptxas -v`` reports for each kernel
 (registers, spills).  Run from the root of a checkout:
 
     python3 scripts/torch_kernel_scaling.py
@@ -51,10 +51,10 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def ptxas_report() -> list[str]:
-    """The register and spill lines nvcc prints for the two sources."""
+    """The register and spill lines nvcc prints for the three sources."""
     lines = []
     with tempfile.TemporaryDirectory(dir=kernel_build.BUILD_DIR) as tmp:
-        for name in ("schur_factor", "bt_sweep_bwd"):
+        for name in ("schur_factor", "bt_sweep_fwd", "bt_sweep_bwd"):
             out = subprocess.run(
                 [kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-Xptxas", "-v",
                  "-I", str(kernel_build.CSRC), "-c",
@@ -92,6 +92,7 @@ def main() -> None:
         print(json.dumps({
             "systems": n, "nzi": NZI, "q": Q,
             "schur_factor_ms": time_ms(lambda: FF.schur_factor(d[:n], oy[:n], oz[:n])),
+            "bt_sweep_fwd_ms": time_ms(lambda: FF.bt_sweep_fwd(G[:n], oz[:n], y[:n])),
             "bt_sweep_bwd_ms": time_ms(lambda: FF.bt_sweep_bwd(G[:n], oz[:n], y[:n])),
         }), flush=True)
     for line in ptxas_report():

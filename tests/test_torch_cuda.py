@@ -49,7 +49,10 @@ def _system(B, nzi, q, seed):
     # the edges of the width templates: the coprod2 width, Q_MAX, more
     # blocks than two waves, and the first width of each larger tile
     (4, 6, 75, 4), (3, 4, 128, 5), (300, 2, 32, 6),
-    (2, 3, 33, 7), (2, 3, 65, 8), (2, 3, 97, 9)])
+    (2, 3, 33, 7), (2, 3, 65, 8), (2, 3, 97, 9),
+    # odd q and odd B nzi: the last line of G starts on a 16-byte boundary,
+    # so the forward sweep's aligned span around it would end past G
+    (1, 1, 95, 10), (3, 5, 75, 11)])
 def test_kernels_match_plain(cuda_device, B, nzi, q, seed):
     d, oy, oz, b = (t.to(cuda_device) for t in _system(B, nzi, q, seed))
     FF.reset_launches()
@@ -72,12 +75,29 @@ def test_launch_checks(cuda_device):
         FF.bt_sweep_fwd(FF.schur_factor(d, oy, oz), oz.cpu(), b)
     with pytest.raises(ValueError):
         FF.schur_factor(*(t.to(cuda_device) for t in _system(1, 2, 130, 0)[:3]))
-    # the backward sweep's bulk copies need G 16-byte aligned
+    # the sweeps' bulk copies need G 16-byte aligned
     G = FF.schur_factor(d, oy, oz)
     shifted = torch.empty(G.numel() + 1, dtype=G.dtype, device=cuda_device)[1:]
     shifted = shifted.view(G.shape).copy_(G)
     with pytest.raises(ValueError, match="aligned"):
         FF.bt_sweep_bwd(shifted, oz, b)
+    with pytest.raises(ValueError, match="aligned"):
+        FF.bt_sweep_fwd(shifted, oz, b)
+
+
+def test_fwd_sweep_reads_nothing_past_G(cuda_device):
+    """G at the start of a buffer whose two entries after G are NaN: at odd
+    q and odd B nzi the 16-byte span around G's last line would reach the
+    first of them, and a NaN read there poisons the last row of y."""
+    d, oy, oz, b = (t.to(cuda_device) for t in _system(3, 5, 95, 12))
+    G = FF.schur_factor(d, oy, oz)
+    buf = torch.full((G.numel() + 2,), complex("nan+nanj"), dtype=G.dtype,
+                     device=cuda_device)
+    assert buf.data_ptr() % 16 == 0
+    G_in = buf[:G.numel()].view(G.shape).copy_(G)
+    y = FF.bt_sweep_fwd(G_in, oz, b)
+    assert bool(torch.isfinite(torch.view_as_real(y)).all())
+    assert relerr(y, FF.bt_sweep_fwd_plain(G, oz, b)) < SWEEP_TOL
 
 
 def test_fused_gradient_on_card_matches_cpu(cuda_device):
