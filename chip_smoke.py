@@ -19,6 +19,12 @@ Phases, each of which exits non-zero on failure:
    full width, C = 8, on the fused kernels, with the launch counts of that
    run, held against the port's own complex128 thomas engine on the card;
 5. three HMC samples at C = 8 driven by that gradient;
+7. the inversion run through the command line, ``hmcmt2d-torch run``, on the
+   full-width flagship written to files: 8 chains, warmup under the thomas
+   engine, the Gauss-Newton mass, the switch to the fused kernels for the
+   dense-mass re-adaptation and the main phase, checkpoints, then a resume
+   to more samples; with the launch counts of each run held to its fused
+   gradient evaluations, and every output file checked;
 6. a JSON summary of the kernels, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -295,6 +301,168 @@ def realistic(problem, m0_t):
                                weights=1.0 / (0.03 * np.abs(obs)))
 
 
+STARTUP = """datafile:      obs.dat
+modelfile:     start.mod
+burninsamples: 8
+totalsamples:  16
+chains:        8
+seed:          1
+resistivity:   1.0 1e4 0.05
+timeinterval:  0.01
+timestep:      4 4
+adapt:         on
+warmuppool:    median
+masstype:      gaussnewton
+masswarmup:    4
+massdt0:       0.2
+"""
+RUN_PHASES = (("warmup", r"\[hmcmt2d\] warmup \d+/\d+:"),
+              ("dense_mass_build", r"\[hmcmt2d\] dense mass"),
+              ("engine_switch_eval", r"\[hmcmt2d\] mass-warmup init:"),
+              ("dense_readapt", r"\[hmcmt2d\] mass-warmup \d+/\d+:"),
+              ("main", r"\[hmcmt2d\] samples "))
+
+
+class _Tee:
+    """Echo what is written and keep a copy (the CLI's progress lines)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def cli_run(torch, argv):
+    """``cli.main(argv)`` in-process, launch counts set to 0 just before and
+    read just after: (rc, launches, wall seconds, its stdout)."""
+    import contextlib
+
+    from hmcmt2d_tpu_torch import cli
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    FF.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = cli.main(argv)
+    except Exception as e:  # noqa: BLE001 - reported, then the phase fails
+        import traceback
+
+        traceback.print_exc()
+        fail(f"hmcmt2d-torch {' '.join(argv[:1])} raised {type(e).__name__}: {e}")
+    torch.cuda.synchronize()
+    return rc, FF.launches(), time.perf_counter() - t0, "".join(tee.lines)
+
+
+def phase_seconds(log: str) -> dict:
+    """Seconds per phase, summed from the ``[hmcmt2d]`` lines."""
+    import re
+
+    out = {}
+    for name, pat in RUN_PHASES:
+        secs = 0.0
+        for line in log.splitlines():
+            if re.match(pat, line):
+                m = re.search(r"([\d.]+) ?s\)?$", line.strip())
+                secs += float(m.group(1)) if m else 0.0
+        out[name] = secs
+    return out
+
+
+def check_cli_run(torch, problem, m0, smi):
+    """Phase 7: ``hmcmt2d-torch run`` on the flagship, written to files, then
+    resumed; every fused gradient eval launches the factor once and each
+    sweep 14 times.  Returns the launch counts of the two runs."""
+    import tempfile
+
+    from hmcmt2d_tpu_torch.io import read_model, write_data, write_model
+    from hmcmt2d_tpu_torch.sampler import diagnostics as D
+
+    n_chains, n_burn, n_mass, n_total, n_resumed = 8, 8, 4, 16, 20
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        sig = problem.sigma2d(torch.as_tensor(m0, device=problem.device))
+        write_model(d / "start.mod", problem.mesh, sig)
+        mesh, sig_back = read_model(d / "start.mod", device=problem.device)
+        if mesh.nz != problem.mesh.nz or not np.allclose(sig_back, sig.cpu().numpy(),
+                                                         rtol=1e-2):
+            fail("the start model did not read back")
+        write_data(d / "obs.dat", problem.fwd.data, problem.obs, 1.0 / problem.weights)
+        (d / "startup").write_text(STARTUP)
+        ck = str(d / "run.ckpt.npz")
+        base = ["run", str(d / "startup"), "--outdir", str(d), "--checkpoint", ck,
+                "--checkpoint-every", "2"]
+
+        rc1, launches1, wall1, log1 = cli_run(torch, base)
+        with np.load(ck) as z:
+            lf1 = z["lf_steps"][:, 0].astype(int)
+        rc2, launches2, wall2, log2 = cli_run(torch, base + ["--samples", str(n_resumed),
+                                                            "--resume"])
+        with np.load(ck) as z:
+            ck_ = {k: z[k] for k in ("models", "stats", "accepts", "lf_steps",
+                                     "n_warm", "dt", "start_stats")}
+        missing = [p.name for p in
+                   [d / "meanModel.model", d / "stdModel.model"]
+                   + [d / f"hmcsamples_id{i}.{e}" for i in range(1, n_chains + 1)
+                      for e in ("model", "data")]
+                   + [d / f"hmcstatistics_id{i}.log" for i in range(1, n_chains + 1)]
+                   if not p.exists()]
+
+    models, stats, accepts, lf = (ck_[k] for k in ("models", "stats", "accepts", "lf_steps"))
+    n_warm = int(ck_["n_warm"])
+    # fused gradient evals: run 1 evaluates once at the engine switch and
+    # then along every leapfrog step of rows n_burn..n_total-1 (the dense
+    # re-adaptation and the main phase); the resumed run only along rows
+    # n_total..n_resumed-1 (its state comes from the checkpoint)
+    evals = [1 + int(lf1[n_burn:n_total].sum()), int(lf[n_total:n_resumed, 0].sum())]
+    secs = [phase_seconds(log1), phase_seconds(log2)]
+    n_main = [n_total - n_burn - n_mass, n_resumed - n_total]
+    rates = [n_chains * n / s["main"] if s["main"] > 0 else None
+             for n, s in zip(n_main, secs)]
+    rhat = D.split_rhat(models[n_warm:])
+    summary = {
+        "cli_run": "hmcmt2d-torch run (flagship, full width, from files)",
+        "card": smi, "chains": n_chains, "rc": [rc1, rc2],
+        "wall_s": [wall1, wall2], "phase_s": secs,
+        "adapted_dt": float(ck_["dt"]), "n_warm": n_warm, "rows": int(models.shape[0]),
+        "accept_rate": {"warmup": float(accepts[:n_burn].mean()),
+                        "dense_readapt": float(accepts[n_burn:n_warm].mean()),
+                        "main": float(accepts[n_warm:].mean())},
+        "nfevals": int(lf.sum()) + n_chains,
+        "main_samples_per_s_per_chip": rates,
+        "split_rhat_main": {"max": float(rhat.max()), "median": float(np.median(rhat))},
+        "misfit": {"start_mean": float(ck_["start_stats"][:, 0].mean()),
+                   "last_mean": float(stats[-1, :, 0].mean())},
+        "fused_evals": evals, "launches": [launches1, launches2],
+        "leapfrog_steps": lf[:, 0].tolist()}
+    say(summary)
+    if rc1 != 0 or rc2 != 0:
+        fail(f"hmcmt2d-torch run returned {rc1}, {rc2}")
+    if missing:
+        fail(f"missing output files: {missing}")
+    if not (np.isfinite(stats).all() and np.isfinite(models).all()):
+        fail("non-finite stats or models in the checkpoint")
+    for name, a in summary["accept_rate"].items():
+        if not 0.0 <= a <= 1.0:
+            fail(f"{name} accept rate {a} outside [0, 1]")
+    if models.shape[0] != n_resumed or n_warm != n_burn + n_mass:
+        fail(f"resumed run holds {models.shape[0]} rows with n_warm {n_warm}, "
+             f"expected {n_resumed} and {n_burn + n_mass}")
+    for i, (counts, n_eval) in enumerate(zip((launches1, launches2), evals)):
+        want = {"schur_factor": n_eval, "bt_sweep_fwd": 14 * n_eval,
+                "bt_sweep_bwd": 14 * n_eval}
+        if counts != want or n_eval == 0:
+            fail(f"run {i + 1}: launches {counts} != {want} for {n_eval} fused evals")
+    return launches1, launches2
+
+
 def main() -> None:
     try:
         import torch
@@ -426,6 +594,9 @@ def main() -> None:
     if not 0.0 <= acc <= 1.0:
         fail(f"accept rate {acc} outside [0, 1]")
 
+    # phase 7: the inversion run through the command line
+    run_launches = check_cli_run(torch, problem, m0, smi)
+
     # phase 6
     replaces = {
         "schur_factor": "hmcmt2d_tpu/ops/pallas_factor.py:137",
@@ -443,7 +614,9 @@ def main() -> None:
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "share_of_bound": r["share_of_bound"],
-                "library_ms": r["library_ms"]} for k, r in kres.items()]
+                "library_ms": r["library_ms"],
+                "launches_cli_run": [c[k] for c in run_launches]}
+               for k, r in kres.items()]
     say({"kernels": kernels})
     say(smi_line())
     say({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,7 +7,15 @@ CPU.  Pass ``device="cpu"`` to run on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor on any device, or anything numpy takes, as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def resolve_device(device=None) -> torch.device:

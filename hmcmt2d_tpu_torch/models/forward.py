@@ -39,11 +39,17 @@ class SolveConfig:
     ``torch.linalg.inv``, exact in complex128) or ``"fused"`` (the CUDA
     kernels of ops/fused_factor.py on complex64 factors, with
     ``refine_iters`` steps of iterative refinement).
+    ``stale_refine_iters`` refinement steps serve a solve with a stale
+    (trajectory-amortised) factor, see :func:`solve_dirichlet`.
     """
 
     solve_dtype: torch.dtype = torch.complex128
     refine_iters: int = 0
     solver_method: str = "thomas"
+    # sized so the worst measured contraction (~0.45 a step at an 8-step
+    # leapfrog drift) still reaches ~1e-4 relative, and refactoring every
+    # ~4 steps ~1e-7 (hmcmt2d_tpu/models/forward.py:67-71)
+    stale_refine_iters: int = 10
 
     @property
     def real_dtype(self) -> torch.dtype:
@@ -152,7 +158,9 @@ def _solve(sys: S.InteriorSystem, fac: S.Factorization, b: torch.Tensor,
 class _DirichletSolve(torch.autograd.Function):
     """x = A^-1 rhs for the interior system A = (diag, offy, offz).
 
-    Forward: factorise the (detached) system once and solve, refined.
+    Forward: factorise the (detached) system once and solve, refined; or,
+    given a stale factor ``fac``, solve with it and ``stale_refine_iters``
+    refinement steps against the current operator.
     Backward: A is complex-symmetric, so under torch's conjugate-Wirtinger
     convention the adjoint is lambda = conj(solve(conj(g))) on the same
     factor; rhs receives lambda and the coefficients receive -lambda pulled
@@ -162,11 +170,16 @@ class _DirichletSolve(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, diag, offy, offz, rhs, cfg: SolveConfig):
+    def forward(ctx, diag, offy, offz, rhs, cfg: SolveConfig,
+                fac: S.Factorization | None = None):
         sys = S.InteriorSystem(diag, offy, offz)
-        fac = S.factorize(sys, dtype=cfg.solve_dtype, method=cfg.solver_method)
-        x = _solve(sys, fac, rhs, cfg.refine_iters)
-        ctx.fac, ctx.iters = fac, cfg.refine_iters
+        if fac is None:
+            fac = S.factorize(sys, dtype=cfg.solve_dtype, method=cfg.solver_method)
+            iters = cfg.refine_iters
+        else:
+            iters = cfg.stale_refine_iters
+        x = _solve(sys, fac, rhs, iters)
+        ctx.fac, ctx.iters = fac, iters
         ctx.save_for_backward(diag, offy, offz, x)
         return x
 
@@ -185,15 +198,21 @@ class _DirichletSolve(torch.autograd.Function):
                 wanted = [t for t, n in zip(leaves, need) if n]
                 got = iter(torch.autograd.grad(ax, wanted, grad_outputs=-lam))
             grads = [next(got) if n else None for n in need]
-        return (*grads, lam if ctx.needs_input_grad[3] else None, None)
+        return (*grads, lam if ctx.needs_input_grad[3] else None, None, None)
 
 
 def solve_dirichlet(st: M.Stencil, omegas: torch.Tensor, bc: torch.Tensor,
-                    cfg: SolveConfig) -> torch.Tensor:
+                    cfg: SolveConfig, fac: S.Factorization | None = None) -> torch.Tensor:
     """Solve A(omega) u = 0 with Dirichlet boundary ``bc`` for every
     frequency.  ``bc`` is (nfreq, ..., nz+1, ny+1), with extra batch axes
     between frequency and grid matching those of ``st``.  Returns full node
-    fields shaped like ``bc``; differentiable w.r.t. the stencil and bc."""
+    fields shaped like ``bc``; differentiable w.r.t. the stencil and bc.
+
+    ``fac`` (optional, from :meth:`ForwardOperator.factor_at`) is a
+    factorisation built at a nearby model, the trajectory-amortised path:
+    the solve refines against the current operator instead of factorising
+    afresh, and the adjoint solve uses the same factor.  Where its batch is
+    1 and ``bc``'s is wider, those right-hand sides share it."""
     rdt = cfg.real_dtype
     st_c = _cast_stencil(st, rdt)
     n_extra = bc.ndim - 3
@@ -203,7 +222,7 @@ def solve_dirichlet(st: M.Stencil, omegas: torch.Tensor, bc: torch.Tensor,
     # rhs = -A_io bc: the interior of bc is zero, so the interior rows of
     # A @ bc are exactly A_io @ bc_boundary
     rhs = -M.interior(M.apply_A(st_c, om, bc))
-    x = _DirichletSolve.apply(sys.diag, sys.offy, sys.offz, rhs, cfg)
+    x = _DirichletSolve.apply(sys.diag, sys.offy, sys.offz, rhs, cfg, fac)
     return bc + M.embed_interior(x)
 
 
@@ -321,20 +340,38 @@ class ForwardOperator:
         return M.Stencil(*(torch.stack([a, b], dim=-3)
                            for a, b in zip(st_te, st_tm)))
 
-    def both_mode_solutions(self, sigma2d: torch.Tensor):
+    @torch.no_grad()
+    def factor_at(self, sigma2d: torch.Tensor) -> S.Factorization:
+        """Factorise the merged (freq x mode) interior systems at this model:
+        the reusable factor that :meth:`both_mode_solutions`,
+        :meth:`response_cube` and :meth:`predict` take as ``fac``.  Not
+        differentiated (it only ever preconditions the solve)."""
+        omegas = self._omegas(sigma2d)
+        st = self.merged_stencil(sigma2d)
+        rdt = self.cfg.real_dtype
+        om = omegas.to(rdt).reshape((-1,) + (1,) * st.m.ndim)
+        sys = S.interior_system(_cast_stencil(st, rdt), om,
+                                dtype=self.cfg.solve_dtype)
+        return S.factorize(sys, dtype=self.cfg.solve_dtype,
+                           method=self.cfg.solver_method)
+
+    def both_mode_solutions(self, sigma2d: torch.Tensor,
+                            fac: S.Factorization | None = None):
         """(fields_te, fields_tm), each (nfreq, ..., nz+1, ny+1), from one
-        batched factor and solve over the stacked (freq x mode) systems."""
+        batched factor and solve over the stacked (freq x mode) systems;
+        ``fac``: an optional stale factor from :meth:`factor_at`."""
         omegas = self._omegas(sigma2d)
         st = self.merged_stencil(sigma2d)
         bc = boundary_grids_both(self.mesh, sigma2d, omegas, self.cfg.solve_dtype)
-        fields = solve_dirichlet(st, omegas, bc, self.cfg)
+        fields = solve_dirichlet(st, omegas, bc, self.cfg, fac=fac)
         return fields[..., 0, :, :], fields[..., 1, :, :]
 
-    def response_cube(self, sigma2d: torch.Tensor) -> torch.Tensor:
+    def response_cube(self, sigma2d: torch.Tensor,
+                      fac: S.Factorization | None = None) -> torch.Tensor:
         """(..., nfreq, nrx, ncomp) responses in ``data_comp`` order, with the
         leading chain axes of ``sigma2d``."""
         omegas = self._omegas(sigma2d)
-        fields_te, fields_tm = self.both_mode_solutions(sigma2d)
+        fields_te, fields_tm = self.both_mode_solutions(sigma2d, fac)
         E, H = rx_fields_te(omegas, self.mesh, sigma2d, fields_te, self.rx)
         Ey, Hx = rx_fields_tm(omegas, self.mesh, sigma2d, fields_tm, self.rx)
         Z = {"XY": E / H, "YX": Ey / Hx}
@@ -356,10 +393,11 @@ class ForwardOperator:
         cube = torch.stack(comps, dim=-1)          # (nfreq, ..., nrx, ncomp)
         return torch.movedim(cube, 0, -3)
 
-    def predict(self, sigma2d: torch.Tensor) -> torch.Tensor:
+    def predict(self, sigma2d: torch.Tensor,
+                fac: S.Factorization | None = None) -> torch.Tensor:
         """Predicted data at the observed (freq, rx, comp) triples, chain
         axes of ``sigma2d`` leading: (..., ndata)."""
-        cube = self.response_cube(sigma2d)
+        cube = self.response_cube(sigma2d, fac)
         flat = cube.reshape(cube.shape[:-3] + (-1,))
         idx = torch.as_tensor(self.data.flat_index, device=flat.device)
         return flat[..., idx]

@@ -60,15 +60,22 @@ class InverseProblem:
         sig = sig + bg.to(m.dtype)
         return sig.reshape(m.shape[:-1] + (msh.nz, msh.ny))
 
-    def predict(self, m: torch.Tensor) -> torch.Tensor:
-        return self.fwd.predict(self.sigma2d(m))
+    def predict(self, m: torch.Tensor, fac=None) -> torch.Tensor:
+        return self.fwd.predict(self.sigma2d(m), fac=fac)
 
-    def data_misfit(self, m: torch.Tensor):
+    def factor_state(self, m: torch.Tensor):
+        """Merged-mode factorisation at model m (the trajectory-amortised
+        path), batched over m's leading chain axes; callers pass it back as
+        ``fac``.  Not differentiated."""
+        return self.fwd.factor_at(self.sigma2d(m.detach()))
+
+    def data_misfit(self, m: torch.Tensor, fac=None):
         """0.5 ||W (F(m) - d)||^2 per chain, and the predicted data.  Complex
         residuals count re and im separately; re^2 + im^2 keeps the gradient
-        clean where a residual is zero."""
+        clean where a residual is zero.  ``fac``: an optional stale factor
+        (solved to the same accuracy by refinement)."""
         obs, w, _, _ = self._tensors
-        pred = self.predict(m)
+        pred = self.predict(m, fac=fac)
         res = w * (pred - obs)
         sq = res.real ** 2 + res.imag ** 2 if res.is_complex() else res ** 2
         return 0.5 * sq.sum(dim=-1), pred
@@ -83,21 +90,43 @@ class InverseProblem:
         """0.5 (m - mref)' Wm (m - mref), Wm = (Gc A)'(Gc A), matrix-free."""
         return 0.5 * M.cell_gradient_sqnorm(self._inject(m - m_ref))
 
-    def potential(self, m: torch.Tensor, m_ref: torch.Tensor, reg: float):
+    def wm_matvec(self, v: torch.Tensor) -> torch.Tensor:
+        """Wm @ v in active space, batched over v's leading axes."""
+        _, _, idx, _ = self._tensors
+        full = M.cell_gradient_normal(self._inject(v))
+        return full.reshape(v.shape[:-1] + (-1,))[..., idx]
+
+    def wm_dense(self, chunk: int = 512) -> np.ndarray:
+        """Dense Wm (n_param x n_param, float64 numpy) for the non-diagonal
+        mass matrix (setMassMatrix(invParam), HMCSampler.jl:478-489), built
+        on the problem's device ``chunk`` columns at a time."""
+        P = self.n_param
+        cols = []
+        for i in range(0, P, chunk):
+            k = min(chunk, P - i)
+            eye = torch.zeros(k, P, dtype=torch.float64, device=self.device)
+            eye[torch.arange(k), torch.arange(i, i + k)] = 1.0
+            cols.append(self.wm_matvec(eye).cpu())
+        return torch.cat(cols).numpy().T
+
+    def potential(self, m: torch.Tensor, m_ref: torch.Tensor, reg: float,
+                  fac=None):
         """U(m) = data misfit + reg * model norm, the HMC potential energy.
-        Returns (U, (misfit, mnorm, pred))."""
-        misfit, pred = self.data_misfit(m)
+        Returns (U, (misfit, mnorm, pred)); ``fac`` as in
+        :meth:`data_misfit`."""
+        misfit, pred = self.data_misfit(m, fac=fac)
         mnorm = reg * self.model_norm(m, m_ref)
         return misfit + mnorm, (misfit, mnorm, pred)
 
     def potential_value_and_grad(self, m: torch.Tensor, m_ref: torch.Tensor,
-                                 reg: float):
+                                 reg: float, fac=None):
         """((U, aux), dU/dm): one forward and one adjoint solve per system,
-        sharing the factorisation.  Chains are independent, so the gradient
-        of the chain-summed U stacks the per-chain gradients."""
+        sharing the factorisation (``fac``, if given, for both).  Chains are
+        independent, so the gradient of the chain-summed U stacks the
+        per-chain gradients."""
         m = m.detach().requires_grad_(True)
         with torch.enable_grad():
-            U, aux = self.potential(m, m_ref, reg)
+            U, aux = self.potential(m, m_ref, reg, fac=fac)
             (g,) = torch.autograd.grad(U.sum(), m)
         return (U.detach(), tuple(a.detach() for a in aux)), g
 

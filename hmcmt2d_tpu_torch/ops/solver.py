@@ -18,6 +18,7 @@ Two engines:
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -102,24 +103,44 @@ def bt_factor(sys: InteriorSystem, inv_fn=torch.linalg.inv) -> BTFactor:
     return BTFactor(torch.stack(Gs, dim=-3), offz)
 
 
-def _mv(Gj: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return (Gj @ v[..., None])[..., 0]
+def rhs_axes(fac_batch: torch.Size, b: torch.Tensor) -> list[int]:
+    """The batch axes of ``b`` (..., nzi, nyi) on which the factor's batch
+    is 1 and b's is wider: right-hand sides that share one factor (the
+    Jacobian's slab of basis vectors)."""
+    bb = b.shape[:-2]
+    fb = (1,) * (len(bb) - len(fac_batch)) + tuple(fac_batch)
+    return [i for i, (f, n) in enumerate(zip(fb, bb)) if f == 1 and n > 1]
 
 
 def bt_solve(fac: BTFactor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b given the factorisation; b is (..., nzi, nyi).  The
-    operator is complex-symmetric, so this also solves the transpose."""
+    operator is complex-symmetric, so this also solves the transpose.
+
+    Right-hand sides on axes where the factor's batch is 1 become the
+    columns of one matrix product per line (G is never copied per column)."""
     G, offz = fac
     b = b.to(G.dtype)
-    c = offz.to(G.dtype)
-    nzi = G.shape[-3]
-    ys = [_mv(G[..., 0, :, :], b[..., 0, :])]
+    c = offz.to(G.dtype)[..., None]
+    nzi, nyi = G.shape[-3], G.shape[-1]
+    wide = rhs_axes(G.shape[:-3], b)
+    bb, nd = b.shape[:-2], b.ndim
+    last = list(range(nd - len(wide), nd))
+    if wide:
+        narrow = tuple(1 if i in wide else n for i, n in enumerate(bb))
+        v = b.movedim(wide, last).reshape(narrow + (nzi, nyi, -1))
+    else:
+        v = b[..., None]
+    ys = [G[..., 0, :, :] @ v[..., 0, :, :]]
     for j in range(1, nzi):
-        ys.append(_mv(G[..., j, :, :], b[..., j, :] + c[..., j - 1, :] * ys[-1]))
+        ys.append(G[..., j, :, :] @ (v[..., j, :, :] + c[..., j - 1, :, :] * ys[-1]))
     xs = [ys[-1]]
     for j in range(nzi - 2, -1, -1):
-        xs.append(ys[j] + _mv(G[..., j, :, :], c[..., j, :] * xs[-1]))
-    return torch.stack(xs[::-1], dim=-2)
+        xs.append(ys[j] + G[..., j, :, :] @ (c[..., j, :, :] * xs[-1]))
+    x = torch.stack(xs[::-1], dim=-3)     # (..., nzi, nyi, columns)
+    if not wide:
+        return x[..., 0]
+    x = x.reshape(x.shape[:-1] + tuple(bb[i] for i in wide)).squeeze(tuple(wide))
+    return x.movedim(last, wide)
 
 
 def equilibrate(sys: InteriorSystem) -> tuple[InteriorSystem, torch.Tensor]:
@@ -157,9 +178,27 @@ def factorize(sys: InteriorSystem, dtype=None, method: str = "thomas") -> Factor
     return Factorization(fac, s)
 
 
+def _fused_solve(fac: FusedFactor, b: torch.Tensor) -> torch.Tensor:
+    """``fused_bt_solve`` for a b whose batch may be wider than the
+    factor's: the kernels take one G per system, so right-hand sides that
+    share a factor are swept one index of the wide axes at a time."""
+    wide = rhs_axes(fac.batch, b)
+    if not wide:
+        return fused_bt_solve(fac, b)
+    out = torch.empty_like(b)
+    for idx in itertools.product(*(range(b.shape[i]) for i in wide)):
+        sl = [slice(None)] * b.ndim
+        for i, k in zip(wide, idx):
+            sl[i] = slice(k, k + 1)
+        sl = tuple(sl)
+        out[sl] = fused_bt_solve(fac, b[sl].reshape(fac.batch + b.shape[-2:])
+                                 ).reshape(b[sl].shape)
+    return out
+
+
 def factor_solve(f: Factorization, b: torch.Tensor) -> torch.Tensor:
     if isinstance(f.fac, FusedFactor):
-        return f.s * fused_bt_solve(f.fac, f.s * b)
+        return f.s * _fused_solve(f.fac, f.s * b)
     return f.s * bt_solve(f.fac, f.s * b)
 
 

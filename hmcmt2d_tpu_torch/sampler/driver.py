@@ -1,13 +1,56 @@
-"""Sampler wiring: the batched potential value-and-grad.
+"""High-level inversion driver: config + files -> chains -> posterior.
 
-Counterpart of ``make_potential_vg`` in ``hmcmt2d_tpu/sampler/driver.py``.
-The rest of that module (warmup, the Gauss-Newton mass, segments and
-checkpoints of ``run_inversion``) is not ported yet.
+PyTorch counterpart of ``hmcmt2d_tpu/sampler/driver.py`` (the reference's
+runHMCscript.jl / runHMCSampler wiring), single device: all chains advance
+together as one batch through the PDE solves.  The run is
+
+1. warmup over the burn-in iterations: dual-averaged step size and windowed
+   diagonal mass (:mod:`.adapt`), in segments;
+2. for a dense masstype, the Gauss-Newton (or Wm) mass at the pooled
+   warmed-up model and a step-size re-adaptation under it;
+3. the main phase, in segments, with a checkpoint after every
+   ``checkpoint_stride`` of them.
+
+Every draw is a pure function of (seed, stream, global index), so segmented
+and resumed runs reproduce an unbroken one exactly (``sampler/hmc.py``
+``generator``).
 """
 
 from __future__ import annotations
 
-from ..models.posterior import InverseProblem
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..device import to_numpy
+from ..io.startup import HMCConfig
+from ..models import jacobian as JJ
+from ..models.forward import SolveConfig
+from ..models.posterior import InverseProblem, build_inverse_problem
+from . import adapt as A
+from . import checkpoint as CK
+from . import hmc as H
+
+
+@dataclasses.dataclass
+class InversionRun:
+    problem: InverseProblem
+    result: H.HMCResult   # outputs on the host; ``final`` on the device
+    config: HMCConfig
+    m_ref: np.ndarray       # (C, P) per-chain reference/start models
+    wall_time: float
+    n_warm: int = 0         # warmup iterations included at the head of result
+
+    @property
+    def nfevals(self) -> int:
+        """Gradient (forward + adjoint) evaluations over all chains: the
+        reference's nfevals counter (HMCStruct.jl:34), plus one initial
+        evaluation per chain."""
+        lf = to_numpy(self.result.lf_steps)
+        return int(lf.sum()) + lf.shape[1]
 
 
 def make_potential_vg(problem: InverseProblem, reg: float):
@@ -16,10 +59,330 @@ def make_potential_vg(problem: InverseProblem, reg: float):
     Chains are an ordinary batch axis of the forward model (one merged
     chains x freq x mode factor and solve), and the per-chain gradients are
     the gradient of the chain-summed potential: chains are independent.
-    ``vg(m, m_ref) -> ((U, (misfit, mnorm, pred)), grad)``, all detached.
+    ``vg(m, m_ref, fac=None) -> ((U, (misfit, mnorm, pred)), grad)``, all
+    detached; ``fac`` is a stale factor from :func:`make_factor_fn`.
     """
 
-    def vg(m, m_ref):
-        return problem.potential_value_and_grad(m, m_ref, reg)
+    def vg(m, m_ref, fac=None):
+        return problem.potential_value_and_grad(m, m_ref, reg, fac=fac)
 
     return vg
+
+
+def make_factor_fn(problem: InverseProblem):
+    """Batched model -> merged-mode factorisation (trajectory amortisation)."""
+    return problem.factor_state
+
+
+def mass_kind(cfg: HMCConfig) -> str:
+    """'diagonal' | 'gn' | 'wm': the reference treats any non-"diagonal"
+    masstype as M = Wm (setMassMatrix, HMCSampler.jl:478-489); 'gaussnewton'
+    is an extension."""
+    mt = cfg.mass_type.lower()
+    if mt == "diagonal":
+        return "diagonal"
+    if mt in ("gaussnewton", "gn"):
+        return "gn"
+    return "wm"
+
+
+def make_mass(problem: InverseProblem, cfg: HMCConfig,
+              dtype=torch.float64) -> H.MassMatrix:
+    kind = mass_kind(cfg)
+    if kind == "diagonal":
+        # the reference uses identity scaling 1.0 (HMCSampler.jl:81-84)
+        return H.identity_mass(problem.n_param, dtype, problem.device)
+    if kind == "gn":
+        raise ValueError("masstype gaussnewton requires adapt: on (the "
+                         "Jacobian is evaluated at the warmed-up model)")
+    return H.dense_mass(problem.wm_dense() + 1e-8 * np.eye(problem.n_param),
+                        dtype, problem.device)
+
+
+def gauss_newton_mass(problem: InverseProblem, m_repr: torch.Tensor, reg: float,
+                      jac_problem: InverseProblem | None = None,
+                      chunk: int = 128, jitter: float = 1e-6) -> H.MassMatrix:
+    """Dense HMC mass M = J'W^2J + reg*Wm + jitter*mu*I, the Gauss-Newton
+    approximation of the posterior precision at ``m_repr`` (P,), in
+    ``m_repr``'s dtype on the problem's device.
+
+    J comes from one factorisation and ``chunk``-row multi-right-hand-side
+    adjoint solves (models/jacobian.full_jacobian_chunked); M and its
+    Cholesky are float64 on the host.  ``jac_problem`` evaluates J under
+    another engine (the hybrid run's exact warmup engine)."""
+    pj = jac_problem if jac_problem is not None else problem
+    J = JJ.full_jacobian_chunked(pj, m_repr, chunk=chunk)
+    w = np.asarray(problem.weights, np.float64)
+    if np.iscomplexobj(problem.obs):
+        w = np.concatenate([w, w])      # re/im rows share the datum weight
+    Jw = J * w[:, None]
+    M = Jw.T @ Jw + reg * problem.wm_dense()
+    mu = np.trace(M) / M.shape[0]
+    M += jitter * mu * np.eye(M.shape[0])
+    return H.dense_mass(M, m_repr.dtype, problem.device)
+
+
+def hmc_options(cfg: HMCConfig) -> H.HMCOptions:
+    return H.HMCOptions(
+        dt=cfg.dt,
+        steps_lo=int(cfg.timestep[0]),
+        steps_hi=int(cfg.timestep[1]),
+        log_sig_lo=float(np.log(cfg.sig_bounds[0])),
+        log_sig_hi=float(np.log(cfg.sig_bounds[1])),
+        reg_param=cfg.reg_param,
+    )
+
+
+def _segment_plan(n_main: int, every: int) -> list[int]:
+    """Segment lengths: full ``every``-sized segments plus a tail."""
+    if every <= 0 or every >= n_main:
+        return [n_main] if n_main > 0 else []
+    segs = [every] * (n_main // every)
+    if n_main % every:
+        segs.append(n_main % every)
+    return segs
+
+
+class _Outputs:
+    """Per-iteration records of a run, gathered on the host."""
+
+    def __init__(self):
+        self.parts = ([], [], [], [], [])   # models, stats, accepts, pred, lf
+
+    def add(self, models, stats, accepts, pred, lf):
+        for part, x in zip(self.parts, (models, stats, accepts, pred, lf)):
+            part.append(to_numpy(x))
+
+    def arrays(self):
+        return [np.concatenate(p) for p in self.parts]
+
+
+def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
+                  n_chains: int | None = None, seed: int | None = None,
+                  solve_cfg: SolveConfig | None = None,
+                  n_samples: int | None = None,
+                  checkpoint_path: str | None = None,
+                  checkpoint_every: int = 0,
+                  checkpoint_stride: int = 1,
+                  resume: bool = False,
+                  verbose: bool = False,
+                  progress_every: int = 0,
+                  warmup_solve_cfg: SolveConfig | None = None,
+                  device=None) -> InversionRun:
+    """End-to-end inversion on ``device`` (None: the GPU, and raises
+    without one); ``solve_cfg`` None is the device's default engine.
+
+    With ``checkpoint_path`` the main phase runs in ``checkpoint_every``-
+    sample segments and dumps the sampler state after every
+    ``checkpoint_stride`` of them (and after the last); ``resume=True``
+    continues from that file bit-exactly.  ``verbose`` prints one
+    ``[hmcmt2d]`` line per segment; ``progress_every`` shortens segments
+    for more lines.
+
+    ``warmup_solve_cfg`` turns on the hybrid engine schedule: warmup runs
+    under that engine (typically exact thomas), and the run switches to the
+    ``solve_cfg`` engine (typically the fused kernels) before the dense-mass
+    phase, starting fresh there at the warmed-up models.  The Gauss-Newton
+    Jacobian is taken under the warmup engine.
+    """
+    n_chains = n_chains or cfg.n_chains
+    seed = cfg.seed if seed is None else seed
+    n_samples = n_samples or cfg.total_samples
+
+    problem, m0_file = build_inverse_problem(
+        mesh, data, obs, err, to_numpy(sigma2d).ravel(),
+        sigma_fixed=cfg.sig_fix, cfg=solve_cfg, device=device)
+    dev = problem.device
+    rdt = problem.fwd.cfg.real_dtype
+
+    vg = make_potential_vg(problem, cfg.reg_param)
+    opts = hmc_options(cfg)
+    # trajectory amortisation is off under the fused engine, the JAX
+    # package's rule (its fused factor is cheap next to the 10 extra
+    # refinement solves of a stale one); on the card that is not measured yet
+    amortize = cfg.amortize and problem.fwd.cfg.solver_method != "fused"
+    factor_fn = make_factor_fn(problem) if amortize else None
+
+    hybrid = (warmup_solve_cfg is not None and cfg.adapt and not resume
+              and warmup_solve_cfg != problem.fwd.cfg)
+    if hybrid:
+        problem_w = dataclasses.replace(
+            problem, fwd=dataclasses.replace(problem.fwd, cfg=warmup_solve_cfg))
+        vg_w = make_potential_vg(problem_w, cfg.reg_param)
+        amortize_w = cfg.amortize and warmup_solve_cfg.solver_method != "fused"
+        factor_fn_w = make_factor_fn(problem_w) if amortize_w else None
+    else:
+        problem_w, vg_w, factor_fn_w = problem, vg, factor_fn
+
+    def log(msg):
+        if verbose:
+            print(f"[hmcmt2d] {msg}", flush=True)
+
+    def rate(n_it, t_seg):
+        dt_s = time.time() - t_seg
+        return f"{n_it * n_chains / dt_s:.2f} samples/s, {dt_s:.3f} s"
+
+    t0 = time.time()
+    wall_prev = 0.0
+    out = _Outputs()
+    start_stats = start_pred = None
+
+    if resume:
+        if not (checkpoint_path and os.path.exists(checkpoint_path)):
+            raise FileNotFoundError(f"no checkpoint to resume: {checkpoint_path}")
+        ck = CK.load_checkpoint(checkpoint_path, dev)
+        n_warm, n_done = ck["n_warm"], ck["n_done"]
+        state, mass = ck["state"], ck["mass"]
+        seed = ck["key"]
+        opts = dataclasses.replace(opts, dt=ck["dt"])
+        m_ref = ck["m_ref"]
+        m_start = m_ref
+        start_stats, start_pred = ck["start_stats"], ck["start_pred"]
+        wall_prev = ck["wall_time"]
+        out.add(*(ck[k] for k in ("models", "stats", "accepts", "pred", "lf_steps")))
+        log(f"resumed {checkpoint_path}: {n_done}/{n_samples - n_warm} main "
+            f"samples done, dt={opts.dt:.4g}")
+    else:
+        n_done = 0
+        m_start = H.random_homogeneous_start(seed, m0_file, n_chains, rdt, dev)
+        m_ref = m_start   # refModel = strModel (HMCSampler.jl:108-109)
+        # with adaptation on, the warmup (and the dense phase) replace this
+        mass = (H.identity_mass(problem.n_param, rdt, dev) if cfg.adapt
+                else make_mass(problem, cfg, rdt))
+        if cfg.adapt:
+            n_warm = min(cfg.burnin, n_samples)
+            wopts = A.WarmupOptions(target_accept=cfg.target_accept,
+                                    alpha_pool=cfg.warmup_pool)
+            seg_w = checkpoint_every or progress_every or n_warm
+            ends = (A.window_schedule(n_warm, wopts) if wopts.adapt_mass
+                    else np.zeros(n_warm, bool))
+            carry = A.warmup_carry_init(vg_w, opts, m_start, m_ref)
+            state0 = carry.state
+            done_w = 0
+            for n_sw in _segment_plan(n_warm, seg_w):
+                t_seg = time.time()
+                carry, wout = A.warmup_scan(
+                    vg_w, opts, m_ref, carry,
+                    A.warmup_keys(seed, done_w, n_sw, dev),
+                    ends[done_w: done_w + n_sw], wopts, factor_fn=factor_fn_w)
+                done_w += n_sw
+                out.add(*wout)
+                log(f"warmup {done_w}/{n_warm}: "
+                    f"misfit={float(wout[1][-1, :, 0].mean()):.4g} "
+                    f"dt={float(torch.exp(carry.da.log_eps)):.4g} "
+                    f"({rate(n_sw, t_seg)})")
+            mass, info = A.warmup_finalize(carry)
+            state = carry.state
+            start_stats, start_pred = A.start_row(state0, seed, m_start.shape)
+            opts = dataclasses.replace(opts, dt=float(info.dt))
+            # dense-metric phase: M (Gauss-Newton or Wm) at the pooled
+            # warmed-up model, then the step size re-adapted under it
+            mkind = mass_kind(cfg)
+            if hybrid:
+                # switch engines before the dense phase: its step size is
+                # then tuned against the main engine near the posterior, and
+                # its final state carries straight into the main phase
+                m_start = state.m
+                state = None
+                log(f"hybrid: warmup engine {warmup_solve_cfg.solver_method} "
+                    f"-> main engine {problem.fwd.cfg.solver_method}")
+            if mkind != "diagonal":
+                t_m = time.time()
+                m_repr = (m_start if state is None else state.m).mean(dim=0)
+                if mkind == "gn":
+                    mass = gauss_newton_mass(problem, m_repr, cfg.reg_param,
+                                             jac_problem=problem_w)
+                else:
+                    mass = H.dense_mass(problem.wm_dense()
+                                        + 1e-8 * np.eye(problem.n_param), rdt, dev)
+                log(f"dense mass ({mkind}) built in {time.time() - t_m:.3f}s")
+                n_c = min(int(cfg.mass_warmup), max(0, n_samples - n_warm))
+                if n_c > 0:
+                    opts_c = dataclasses.replace(opts, dt=float(cfg.mass_dt0))
+                    wopts_c = dataclasses.replace(wopts, adapt_mass=False)
+                    t_i = time.time()
+                    if state is None:
+                        # a fresh main-engine evaluation at the warmed-up models
+                        carry = A.warmup_carry_init(vg, opts_c, m_start, m_ref)
+                        log(f"mass-warmup init: main-engine gradient in "
+                            f"{time.time() - t_i:.3f} s")
+                    else:
+                        P = state.m.shape[-1]
+                        kw = dict(dtype=state.m.dtype, device=dev)
+                        carry = A.WarmupCarry(
+                            state=state,
+                            da=A._da_init(torch.tensor(opts_c.dt, **kw)),
+                            inv_m=torch.ones(P, **kw),
+                            acc=(torch.zeros((), **kw), torch.zeros(P, **kw),
+                                 torch.zeros(P, **kw)),
+                            alpha_acc=(torch.zeros((), **kw), torch.zeros((), **kw)))
+                    seg_c = checkpoint_every or progress_every or n_c
+                    done_c = 0
+                    for n_sc in _segment_plan(n_c, seg_c):
+                        t_seg = time.time()
+                        carry, wout = A.warmup_scan(
+                            vg, opts_c, m_ref, carry,
+                            A.warmup_keys(seed, n_warm + done_c, n_sc, dev),
+                            np.zeros(n_sc, bool), wopts_c, factor_fn=factor_fn,
+                            fixed_mass=mass)
+                        done_c += n_sc
+                        out.add(*wout)
+                        log(f"mass-warmup {done_c}/{n_c}: "
+                            f"misfit={float(wout[1][-1, :, 0].mean()):.4g} "
+                            f"dt={float(torch.exp(carry.da.log_eps)):.4g} "
+                            f"({rate(n_sc, t_seg)})")
+                    _, info_c = A.warmup_finalize(carry)
+                    state = carry.state     # main-engine state: flows on
+                    opts = dataclasses.replace(opts, dt=float(info_c.dt))
+                    n_warm += n_c
+                    log(f"mass-warmup done: dt={opts.dt:.4g}, "
+                        f"accept~{float(info_c.alpha_mean):.2f}")
+            log(f"warmup {n_warm} iters in {time.time() - t0:.1f}s: adapted "
+                f"dt={opts.dt:.4g}, accept~{float(info.alpha_mean):.2f}, "
+                f"misfit {float(start_stats[:, 0].mean()):.4g} -> "
+                f"{float(out.parts[1][-1][-1, :, 0].mean()):.4g}")
+        else:
+            n_warm = 0
+            state = None   # the first segment initialises itself
+
+    n_main = n_samples - n_warm
+    # per-sample draws are a pure function of the global sample index
+    # (run_hmc's key_offset), so any segmentation, a resume included,
+    # gives the same stream
+    every = checkpoint_every if checkpoint_every else progress_every
+    segs = _segment_plan(n_main - n_done, every)
+    for i_seg, n_seg in enumerate(segs):
+        t_seg = time.time()
+        res = H.run_hmc(vg, opts, mass, state.m if state is not None else m_start,
+                        m_ref, n_seg, seed, init_state=state, key_offset=n_done,
+                        factor_fn=factor_fn)
+        state = res.final
+        n_done += n_seg
+        if start_stats is None:
+            start_stats, start_pred = res.start_stats, res.start_pred
+        out.add(res.models, res.stats, res.accepts, res.pred, res.lf_steps)
+        log(f"samples {n_done - n_seg + 1}..{n_done}/{n_main}: "
+            f"misfit={float(res.stats[-1, :, 0].mean()):.4g} "
+            f"accept={float(res.accepts.double().mean()):.2f} "
+            f"dt={opts.dt:.4g} ({rate(n_seg, t_seg)})")
+        # checkpoint every `checkpoint_stride` segments and after the last
+        if checkpoint_path and ((i_seg + 1) % max(checkpoint_stride, 1) == 0
+                                or i_seg == len(segs) - 1):
+            models, stats, accepts, pred, lf = out.arrays()
+            CK.save_checkpoint(
+                checkpoint_path, n_done=n_done, state=state, key=seed,
+                dt=opts.dt, mass=mass, m_ref=m_ref, models=models, stats=stats,
+                accepts=accepts, pred=pred, lf_steps=lf,
+                start_stats=start_stats, start_pred=start_pred, n_warm=n_warm,
+                wall_time=wall_prev + time.time() - t0)
+
+    models, stats, accepts, pred, lf = out.arrays()
+    result = H.HMCResult(
+        models=torch.from_numpy(models), stats=torch.from_numpy(stats),
+        accepts=torch.from_numpy(accepts), pred=torch.from_numpy(pred),
+        final=state, start_stats=torch.as_tensor(to_numpy(start_stats)),
+        start_pred=torch.as_tensor(to_numpy(start_pred)),
+        lf_steps=torch.from_numpy(lf))
+    return InversionRun(problem=problem, result=result, config=cfg,
+                        m_ref=to_numpy(m_ref), wall_time=wall_prev + time.time() - t0,
+                        n_warm=n_warm)

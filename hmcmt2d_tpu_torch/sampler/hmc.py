@@ -9,10 +9,11 @@ HMCSampler.jl), with the same deliberate choices:
   proposal costs L gradient evaluations, not L + 1;
 * reflective bounds are a closed-form triangle-wave fold.
 
-Randomness is counter-based on the global sample index: iteration i draws
-from a fresh ``torch.Generator`` seeded from (seed, key_offset + i), so a run
-split into segments gives the same samples as one unbroken run.  The streams
-differ from ``jax.random``'s; tests hand both sides the same draws.
+Randomness is counter-based: every draw comes from a fresh
+``torch.Generator`` seeded from (seed, stream, global index), see
+:func:`generator`, so a run split into segments, or resumed from a
+checkpoint, gives the same samples as one unbroken run.  The streams differ
+from ``jax.random``'s; tests hand both sides the same draws.
 """
 
 from __future__ import annotations
@@ -114,32 +115,51 @@ class HMCOptions:
     log_sig_hi: float
     reg_param: float
     max_step_size: float = 3.0  # position-step clip (HMCSampler.jl:234-243)
+    # with a factor_fn (trajectory-amortised factorisation), refactorise the
+    # PDE systems every this many leapfrog steps; the steps in between solve
+    # with the stale factor and refinement
+    refactor_every: int = 4
 
 
 def _leapfrog(potential_vg: Callable, opts: HMCOptions, mass: MassMatrix,
-              state: ChainState, p0, m_ref, n_steps: int, dt: float):
+              state: ChainState, p0, m_ref, n_steps: int, dt,
+              factor_fn: Callable | None = None):
     """Leapfrog trajectory of ``n_steps`` steps (proposeLeapfrog): one
     potential gradient per step, the first half-kick from the carried
-    gradient.  Returns (proposal state, final momentum)."""
+    gradient.  Returns (proposal state, final momentum).
+
+    ``factor_fn`` (batched model -> factorisation) turns on the
+    trajectory-amortised path: the factor is built at the trajectory start
+    and at every step k > 0 with k % ``opts.refactor_every`` == 0, and
+    ``potential_vg`` then takes it as a third argument."""
     p = p0 - 0.5 * dt * state.grad
     m = state.m
     aux, g = (state.misfit, state.mnorm, state.pred), state.grad
+    fac = factor_fn(m) if factor_fn is not None else None
     for k in range(n_steps):
         dm = dt * mass.apply_inv(p)
         dm_max = dm.abs().amax(dim=-1, keepdim=True)
         m = m + dm * torch.clamp(opts.max_step_size / dm_max, max=1.0)
         m, p = reflect_bounds(m, p, opts.log_sig_lo, opts.log_sig_hi)
-        (_, aux), g = potential_vg(m, m_ref)
+        if factor_fn is not None:
+            if k > 0 and k % opts.refactor_every == 0:
+                fac = factor_fn(m)
+            (_, aux), g = potential_vg(m, m_ref, fac)
+        else:
+            (_, aux), g = potential_vg(m, m_ref)
         p = p - (0.5 * dt if k == n_steps - 1 else dt) * g
     misfit, mnorm, pred = aux
     return ChainState(m=m, grad=g, misfit=misfit, mnorm=mnorm, pred=pred), p
 
 
-def make_sample_step(potential_vg: Callable, opts: HMCOptions):
+def make_sample_step(potential_vg: Callable, opts: HMCOptions,
+                     factor_fn: Callable | None = None):
     """The per-iteration kernel, one MH-corrected HMC proposal:
     ``sample_step(state, gen, m_ref, dt, mass, draws=None) -> (new, accept,
     stats, alpha, L)``.  ``draws = (L, p0, u)`` replaces the generator's
     draws (the seam the tests use to hand both frameworks the same numbers).
+    ``dt`` and ``mass`` are arguments so that warmup can tune them between
+    iterations; ``factor_fn`` as in :func:`_leapfrog`.
     """
 
     def sample_step(state: ChainState, gen: torch.Generator, m_ref, dt: float,
@@ -155,7 +175,8 @@ def make_sample_step(potential_vg: Callable, opts: HMCOptions):
             L, p0, u = draws
         ke0 = mass.kinetic(p0)
         h0 = state.misfit + state.mnorm + ke0
-        prop, p1 = _leapfrog(potential_vg, opts, mass, state, p0, m_ref, L, dt)
+        prop, p1 = _leapfrog(potential_vg, opts, mass, state, p0, m_ref, L, dt,
+                             factor_fn=factor_fn)
         h1 = prop.misfit + prop.mnorm + mass.kinetic(p1)
 
         # MH: accept if dH > 0 or u < exp(dH).  A proposal with any
@@ -187,9 +208,18 @@ def sample_chain_init(potential_vg: Callable, m0, m_ref) -> ChainState:
     return ChainState(m=m0, grad=g, misfit=misfit, mnorm=mnorm, pred=pred)
 
 
+# the streams of :func:`generator`, one for each use of randomness
+STREAM_START_ROW = 0     # run_hmc's start-row momentum (index 0)
+STREAM_MAIN = 1          # main-phase iteration, global sample index
+STREAM_WARMUP = 2        # warmup iteration, global warmup index (it runs on
+                         # through the dense-mass re-adaptation)
+STREAM_WARMUP_ROW = 3    # warmup's start-row momentum (index 0)
+STREAM_START_MODEL = 4   # random_homogeneous_start (index 0)
+
+
 def generator(seed: int, stream: int, index: int, device) -> torch.Generator:
-    """A generator keyed on (seed, stream, index): stream 0 for the start
-    row's momentum, stream 1 for the iteration with global index ``index``."""
+    """A generator keyed on (seed, stream, index), a pure function of the
+    three: the ``STREAM_*`` constants name the streams."""
     state = np.random.SeedSequence([seed, stream, index]).generate_state(2, np.uint32)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0]) << 32 | int(state[1]))
@@ -203,21 +233,23 @@ def _pred_cast(p: torch.Tensor) -> torch.Tensor:
 def run_hmc(potential_vg: Callable, opts: HMCOptions, mass: MassMatrix,
             m0, m_ref, n_samples: int, seed: int,
             sample_dtype=torch.float32, init_state: ChainState | None = None,
-            key_offset: int = 0) -> HMCResult:
+            key_offset: int = 0, factor_fn: Callable | None = None) -> HMCResult:
     """Run ``n_samples`` HMC iterations for a batch of chains.
 
     ``potential_vg(m (C, P), m_ref) -> ((U, (misfit, mnorm, pred)), grad)``
     is the batched potential value-and-grad.  ``init_state`` skips the
     evaluation at ``m0``; ``key_offset`` is the number of samples already
     drawn, so segmented runs reproduce an unbroken one exactly.
+    ``factor_fn`` as in :func:`_leapfrog`.
     """
     if n_samples < 1:
         raise ValueError("run_hmc needs n_samples >= 1")
     start = init_state if init_state is not None else sample_chain_init(
         potential_vg, m0, m_ref)
-    step = make_sample_step(potential_vg, opts)
+    step = make_sample_step(potential_vg, opts, factor_fn=factor_fn)
     dev = m0.device
-    ke_init = mass.kinetic(mass.draw(generator(seed, 0, 0, dev), m0.shape))
+    ke_init = mass.kinetic(mass.draw(generator(seed, STREAM_START_ROW, 0, dev),
+                                     m0.shape))
     h_init = start.misfit + start.mnorm + ke_init
     start_stats = torch.stack([start.misfit.to(h_init.dtype),
                                start.mnorm.to(h_init.dtype),
@@ -226,7 +258,8 @@ def run_hmc(potential_vg: Callable, opts: HMCOptions, mass: MassMatrix,
     models, stats, accepts, preds, lf = [], [], [], [], []
     for i in range(n_samples):
         state, accept, st, _alpha, L = step(
-            state, generator(seed, 1, key_offset + i, dev), m_ref, opts.dt, mass)
+            state, generator(seed, STREAM_MAIN, key_offset + i, dev), m_ref,
+            opts.dt, mass)
         models.append(state.m.to(sample_dtype))
         stats.append(st)
         accepts.append(accept)
@@ -236,3 +269,19 @@ def run_hmc(potential_vg: Callable, opts: HMCOptions, mass: MassMatrix,
                      accepts=torch.stack(accepts), pred=torch.stack(preds),
                      final=state, start_stats=start_stats,
                      start_pred=_pred_cast(start.pred), lf_steps=torch.stack(lf))
+
+
+def random_homogeneous_start(seed: int, m0_file: np.ndarray, n_chains: int,
+                             dtype=torch.float64, device=None) -> torch.Tensor:
+    """Per-chain randomised homogeneous start model: rho_ref ~ round(U(0.5,
+    1.5) rho0) with rho0 from the file's start model (HMCSampler.jl:99-110),
+    drawn from stream ``STREAM_START_MODEL``.  Returns (C, P) start models
+    (also the reference models, HMCSampler.jl:108-109); ``device=None``
+    means the GPU."""
+    dev = resolve_device(device)
+    rho0 = 1.0 / np.exp(float(np.asarray(m0_file)[0]))
+    u = torch.rand(n_chains, generator=generator(seed, STREAM_START_MODEL, 0, dev),
+                   dtype=torch.float64, device=dev)
+    rho_ref = torch.round(0.5 * rho0 + u * rho0)
+    m = torch.log(1.0 / rho_ref).to(dtype)
+    return m[:, None].expand(n_chains, len(m0_file)).contiguous()

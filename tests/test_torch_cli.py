@@ -1,0 +1,148 @@
+"""The port's command line (``hmcmt2d_tpu_torch/cli.py``) on the CPU.
+
+``run`` on the tiny problem written to a temporary directory, checkpointed
+and resumed; ``forward`` against JAX's ``cmd_forward`` (both in complex128;
+the files print 7 significant digits, so 1e-10 relative means the same
+digits); the engine rules of ``_solve_cfg`` and ``_warmup_cfg`` against
+JAX's; and the GPU default.
+"""
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from hmcmt2d_tpu import cli as JC  # noqa: E402
+from hmcmt2d_tpu_torch import cli  # noqa: E402
+from hmcmt2d_tpu_torch.io import read_data, write_data, write_model  # noqa: E402
+from tests.test_e2e import tiny_setup  # noqa: E402
+from tests.torch_parity import port_setup  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+STARTUP = """datafile:      obs.dat
+modelfile:     start.mod
+burninsamples: 4
+totalsamples:  10
+resistivity:   0.1 1e4 0.05
+timeinterval:  0.05
+timestep:      2 3
+chains:        2
+seed:          3
+adapt:         on
+warmuppool:    median
+masstype:      gaussnewton
+masswarmup:    2
+massdt0:       0.2
+"""
+
+
+@pytest.fixture(scope="module")
+def startup(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli")
+    mesh, start_sig, data, obs, err = tiny_setup()
+    tmesh, tdata = port_setup(mesh, data)
+    write_model(d / "start.mod", tmesh, start_sig)
+    write_data(d / "obs.dat", tdata, obs, err)
+    (d / "startup").write_text(STARTUP)
+    return d / "startup"
+
+
+@pytest.fixture(scope="module")
+def jax_forward(startup, tmp_path_factory):
+    """JAX's ``hmcmt2d forward`` of the startup file, read back."""
+    path = tmp_path_factory.mktemp("jaxfwd") / "jax.dat"
+    assert JC.main(["--precision", "f64", "forward", str(startup), "-o", str(path)]) == 0
+    return read_data(path)
+
+
+def _files(d, C):
+    names = ["meanModel.model", "stdModel.model"]
+    for i in range(1, C + 1):
+        names += [f"hmcsamples_id{i}.model", f"hmcsamples_id{i}.data",
+                  f"hmcstatistics_id{i}.log"]
+    return [d / n for n in names]
+
+
+def test_run_writes_every_file_and_resumes(startup, tmp_path, capsys):
+    out, ck = tmp_path / "out", str(tmp_path / "run.ckpt.npz")
+    out.mkdir()
+    rc = cli.main(["--device", "cpu", "run", str(startup), "--outdir", str(out),
+                   "--checkpoint", ck, "--checkpoint-every", "2"])
+    assert rc == 0
+    log = capsys.readouterr().out
+    assert "[hmcmt2d] warmup 4/4" in log and "dense mass (gn)" in log
+    assert "samples 1..2/4" in log and "split-R-hat" in log
+    assert all(p.exists() for p in _files(out, 2))
+    lines = (out / "hmcstatistics_id2.log").read_text().splitlines()
+    assert lines[1].startswith("Totalsamples:     10") and len(lines) == 4 + 10
+    assert len((out / "hmcsamples_id1.data").read_text().splitlines()) == 11
+
+    rc = cli.main(["--device", "cpu", "run", str(startup), "--outdir", str(out),
+                   "--checkpoint", ck, "--checkpoint-every", "2", "--samples", "14",
+                   "--resume", "--out-thin", "2"])
+    assert rc == 0
+    assert "resumed" in capsys.readouterr().out
+    with np.load(ck) as z:
+        assert z["models"].shape[:2] == (14, 2) and int(z["n_warm"]) == 6
+        assert np.isfinite(z["stats"]).all()
+    assert len((out / "hmcsamples_id1.model").read_text().splitlines()) == 7
+
+
+def test_forward_matches_jax(startup, jax_forward, tmp_path):
+    tp = tmp_path / "port.dat"
+    assert cli.main(["--device", "cpu", "--precision", "f64", "forward",
+                     str(startup), "-o", str(tp)]) == 0
+    _, jv, je = jax_forward
+    _, tv, te = read_data(tp)
+    np.testing.assert_allclose(tv, jv, rtol=1e-10, atol=0)
+    np.testing.assert_allclose(te, je, rtol=1e-10, atol=0)
+
+
+def test_default_device_needs_a_gpu(startup, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["run", str(startup)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["forward", str(startup)])
+
+
+def _args(**kw):
+    base = dict(precision="f32", refine=1, solver="thomas", inv="auto",
+                warmup_solver="auto")
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+@pytest.mark.parametrize("precision,solver,refine", [
+    ("f32", "thomas", 2), ("f32", "fused", 0), ("f32", "fused", 4),
+    ("f64", "thomas", 1)])
+@pytest.mark.parametrize("warmup", ["auto", "same", "thomas", "fused"])
+def test_engine_rules_match_jax(precision, solver, refine, warmup):
+    a = _args(precision=precision, solver=solver, refine=refine, warmup_solver=warmup)
+    t, j = cli._solve_cfg(a, torch.device("cpu")), JC._solve_cfg(a)
+    assert (t.solver_method, t.refine_iters, t.real_dtype.itemsize) == (
+        j.solver_method, j.refine_iters, np.dtype(j.real_dtype).itemsize)
+    tw, jw = cli._warmup_cfg(a, t), JC._warmup_cfg(a, j)
+    assert (tw is None) == (jw is None)
+    if tw is not None:
+        assert (tw.solver_method, tw.refine_iters) == (jw.solver_method, jw.refine_iters)
+
+
+def test_fused_f64_is_refused():
+    a = _args(precision="f64", solver="fused")
+    with pytest.raises(SystemExit):
+        cli._solve_cfg(a, torch.device("cpu"))
+    with pytest.raises(SystemExit):
+        JC._solve_cfg(a)
+
+
+def test_module_entry_point():
+    out = subprocess.run([sys.executable, "-m", "hmcmt2d_tpu_torch.cli", "run", "--help"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "--warmup-solver" in out.stdout

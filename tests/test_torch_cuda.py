@@ -118,3 +118,55 @@ def test_fused_gradient_on_card_matches_cpu(cuda_device):
     g, gc = g.cpu().double(), gc.double()
     cos = (g * gc).sum(-1) / (g.norm(dim=-1) * gc.norm(dim=-1))
     assert float(cos.min()) > 0.9999
+
+
+def _tiny_inputs():
+    """The tiny flagship's mesh, start model, survey and observations (its
+    own prediction at the start model plus 3% noise), for run_inversion."""
+    from hmcmt2d_tpu_torch.constants import SIGMA_AIR
+
+    prob, m0 = entry.flagship_problem(tiny=True, device="cpu")
+    with torch.no_grad():
+        obs = prob.predict(torch.as_tensor(m0)).numpy()
+    rng = np.random.default_rng(0)
+    obs = obs * (1 + 0.03 * (rng.standard_normal(len(obs))
+                             + 1j * rng.standard_normal(len(obs))) / np.sqrt(2))
+    sig = np.full((prob.mesh.nz, prob.mesh.ny), 0.01)
+    sig[:prob.mesh.n_air] = SIGMA_AIR
+    return prob.mesh, sig, prob.fwd.data, obs, 0.03 * np.abs(obs)
+
+
+def test_jacobian_on_card_matches_cpu_complex128(cuda_device):
+    """All rows of J from one thomas complex64 factor on the card, shared by
+    each chunk's right-hand sides, against the exact CPU Jacobian."""
+    from hmcmt2d_tpu_torch.models.jacobian import full_jacobian_chunked
+
+    gpu, m0 = entry.flagship_problem(tiny=True, device=cuda_device,
+                                     cfg=SolveConfig(torch.complex64, 3, "thomas"))
+    cpu, _ = entry.flagship_problem(tiny=True, device="cpu")
+    m = m0 + 0.05 * np.sin(np.arange(len(m0)))
+    J = full_jacobian_chunked(gpu, torch.as_tensor(m, dtype=torch.float32,
+                                                   device=cuda_device), chunk=16)
+    J_ref = full_jacobian_chunked(cpu, torch.as_tensor(m), chunk=16)
+    assert np.isfinite(J).all()
+    assert float(np.abs(J - J_ref).max() / np.abs(J_ref).max()) < 1e-4
+
+
+def test_run_inversion_main_phase_on_the_kernels(cuda_device):
+    """A hybrid run (thomas warmup, fused main phase) on the card: the main
+    phase launches the factor once per fused gradient eval (one at the
+    switch, then one a leapfrog step) and each sweep 14 times."""
+    from hmcmt2d_tpu_torch.io import HMCConfig
+    from hmcmt2d_tpu_torch.sampler.driver import run_inversion
+
+    cfg = HMCConfig(burnin=4, total_samples=8, sig_bounds=(1e-4, 10.0), dt=0.01,
+                    timestep=(2, 3), seed=0, adapt=True, n_chains=2)
+    FF.reset_launches()
+    run = run_inversion(cfg, *_tiny_inputs(), device=None,
+                        warmup_solve_cfg=SolveConfig(torch.complex64, 3, "thomas"))
+    evals = 1 + int(run.result.lf_steps[run.n_warm:, 0].sum())
+    assert run.problem.fwd.cfg.solver_method == "fused" and run.n_warm == 4
+    assert FF.launches() == {"schur_factor": evals, "bt_sweep_fwd": 14 * evals,
+                             "bt_sweep_bwd": 14 * evals}
+    assert torch.isfinite(run.result.stats).all()
+    assert run.result.final.m.device.type == "cuda"

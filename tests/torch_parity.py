@@ -33,6 +33,42 @@ def problem_arrays(problem) -> dict:
                 bg_flat=np.asarray(problem.bg_flat))
 
 
+def port_setup(mesh, data):
+    """A JAX mesh and ``MTData`` (as ``tests/test_e2e.py::tiny_setup`` makes
+    them) rebuilt as the port's, on the CPU."""
+    from hmcmt2d_tpu_torch import make_mesh
+    from hmcmt2d_tpu_torch.models.data import MTData
+
+    tmesh = make_mesh(np.asarray(mesh.y_len), np.asarray(mesh.z_len),
+                      air_layer=np.asarray(mesh.air_layer),
+                      origin=np.asarray(mesh.origin), device="cpu")
+    tdata = MTData(rx_loc=data.rx_loc, freqs=data.freqs, data_type=data.data_type,
+                   data_comp=data.data_comp, freq_id=data.freq_id,
+                   rx_id=data.rx_id, dt_id=data.dt_id)
+    return tmesh, tdata
+
+
+def tiny_problems(cfg=None):
+    """``tests/test_mass.py``'s tiny problem on both sides: (JAX problem
+    under exact complex128 thomas, the port's problem on the CPU under
+    ``cfg`` (default the same engine), start model m0)."""
+    import jax.numpy as jnp
+
+    from hmcmt2d_tpu.models import forward as F
+    from hmcmt2d_tpu.models.posterior import build_inverse_problem
+    from hmcmt2d_tpu_torch import convert
+    from hmcmt2d_tpu_torch.models.forward import SolveConfig
+    from tests.test_e2e import tiny_setup
+
+    mesh, start_sig, data, obs, err = tiny_setup()
+    jprob, m0 = build_inverse_problem(mesh, data, obs, err, start_sig.ravel(),
+                                      cfg=F.SolveConfig(jnp.complex128, 0, "thomas"))
+    tprob = convert.problem_from_arrays(
+        problem_arrays(jprob), cfg or SolveConfig(torch.complex128, 0, "thomas"),
+        device="cpu")
+    return jprob, tprob, np.asarray(m0)
+
+
 def jax_problem_with(problem, cfg):
     """The JAX problem rebuilt under another ``SolveConfig``."""
     from hmcmt2d_tpu.models.forward import make_forward
