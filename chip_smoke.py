@@ -25,6 +25,18 @@ Phases, each of which exits non-zero on failure:
    dense-mass re-adaptation and the main phase, checkpoints, then a resume
    to more samples; with the launch counts of each run held to its fused
    gradient evaluations, and every output file checked;
+8. the sharded sampler (``hmcmt2d_tpu_torch.parallel``) in ranks spawned on
+   the card, each group with its own wall limit: (a) one NCCL rank on a
+   (1 x 1) mesh runs phase 5's samples and must equal them bit for bit;
+   (b) two gloo ranks on a (2 chains x 1 freq) mesh run them at B = 88
+   systems a rank, held to phase 5 within tolerance, with the two ranks'
+   samples/s beside phase 5's; (c) four gloo ranks on a (2 x 2) mesh warm
+   up and sample the tiny flagship, held exactly to one process on the
+   card that sums in the ranks' order, and within looser limits to the
+   plain single process, limits that two faulty controls must break;
+   every rank launches each kernel (1, 14, 14) times a fused eval;
+   (d) ``hmcmt2d-torch run`` in two gloo processes joined with
+   --coordinator on phase 7's files, cut shorter: rank 0 alone writes;
 6. a JSON summary of the kernels, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -285,6 +297,27 @@ def profile_eval(torch, vg, m, m_ref) -> dict:
             "top": [{"kernel": k[:80], "ms": ms, "count": n} for k, (ms, n) in top]}
 
 
+def hmc_options(H):
+    """Phase 5's sampler controls (also phase 8a and 8b's)."""
+    return H.HMCOptions(dt=1e-3, steps_lo=4, steps_hi=4,
+                        log_sig_lo=float(np.log(1e-4)),
+                        log_sig_hi=float(np.log(10.0)), reg_param=1.0)
+
+
+def flagship_inputs(torch, dev):
+    """The main path's problem (realistic observations) and its models:
+    (problem, m0, m (C, P) around m0 from numpy seed 1, m_ref)."""
+    from hmcmt2d_tpu_torch.entry import flagship_problem
+
+    problem, m0 = flagship_problem(device=dev)
+    m0_t = torch.as_tensor(m0, dtype=torch.float32, device=dev)
+    problem = realistic(problem, m0_t)
+    rng = np.random.default_rng(1)
+    m = (m0_t + 0.01 * torch.as_tensor(rng.standard_normal((C, len(m0))),
+                                       dtype=torch.float32, device=dev))
+    return problem, m0, m, m0_t.expand(C, -1)
+
+
 def realistic(problem, m0_t):
     """Observations = the problem's own prediction at the start model plus
     3% complex noise (numpy seed 0), errors 3% of |obs| (bench.py:45-66)."""
@@ -376,26 +409,43 @@ def phase_seconds(log: str) -> dict:
     return out
 
 
+def write_run_files(problem, m0, d: Path, startup: str) -> None:
+    """The start model, the observations and ``startup`` written to ``d``
+    (the start model read back as a check)."""
+    import torch
+
+    from hmcmt2d_tpu_torch.io import read_model, write_data, write_model
+
+    sig = problem.sigma2d(torch.as_tensor(m0, device=problem.device))
+    write_model(d / "start.mod", problem.mesh, sig)
+    mesh, sig_back = read_model(d / "start.mod", device=problem.device)
+    if mesh.nz != problem.mesh.nz or not np.allclose(sig_back, sig.cpu().numpy(),
+                                                     rtol=1e-2):
+        fail("the start model did not read back")
+    write_data(d / "obs.dat", problem.fwd.data, problem.obs, 1.0 / problem.weights)
+    (d / "startup").write_text(startup)
+
+
+def output_names(n_chains: int) -> list[str]:
+    """The files ``hmcmt2d-torch run`` writes for ``n_chains`` chains."""
+    return (["meanModel.model", "stdModel.model"]
+            + [f"hmcsamples_id{i}.{e}" for i in range(1, n_chains + 1)
+               for e in ("model", "data")]
+            + [f"hmcstatistics_id{i}.log" for i in range(1, n_chains + 1)])
+
+
 def check_cli_run(torch, problem, m0, smi):
     """Phase 7: ``hmcmt2d-torch run`` on the flagship, written to files, then
     resumed; every fused gradient eval launches the factor once and each
     sweep 14 times.  Returns the launch counts of the two runs."""
     import tempfile
 
-    from hmcmt2d_tpu_torch.io import read_model, write_data, write_model
     from hmcmt2d_tpu_torch.sampler import diagnostics as D
 
     n_chains, n_burn, n_mass, n_total, n_resumed = 8, 8, 4, 16, 20
     with tempfile.TemporaryDirectory() as d:
         d = Path(d)
-        sig = problem.sigma2d(torch.as_tensor(m0, device=problem.device))
-        write_model(d / "start.mod", problem.mesh, sig)
-        mesh, sig_back = read_model(d / "start.mod", device=problem.device)
-        if mesh.nz != problem.mesh.nz or not np.allclose(sig_back, sig.cpu().numpy(),
-                                                         rtol=1e-2):
-            fail("the start model did not read back")
-        write_data(d / "obs.dat", problem.fwd.data, problem.obs, 1.0 / problem.weights)
-        (d / "startup").write_text(STARTUP)
+        write_run_files(problem, m0, d, STARTUP)
         ck = str(d / "run.ckpt.npz")
         base = ["run", str(d / "startup"), "--outdir", str(d), "--checkpoint", ck,
                 "--checkpoint-every", "2"]
@@ -408,12 +458,7 @@ def check_cli_run(torch, problem, m0, smi):
         with np.load(ck) as z:
             ck_ = {k: z[k] for k in ("models", "stats", "accepts", "lf_steps",
                                      "n_warm", "dt", "start_stats")}
-        missing = [p.name for p in
-                   [d / "meanModel.model", d / "stdModel.model"]
-                   + [d / f"hmcsamples_id{i}.{e}" for i in range(1, n_chains + 1)
-                      for e in ("model", "data")]
-                   + [d / f"hmcstatistics_id{i}.log" for i in range(1, n_chains + 1)]
-                   if not p.exists()]
+        missing = [n for n in output_names(n_chains) if not (d / n).exists()]
 
     models, stats, accepts, lf = (ck_[k] for k in ("models", "stats", "accepts", "lf_steps"))
     n_warm = int(ck_["n_warm"])
@@ -463,6 +508,334 @@ def check_cli_run(torch, problem, m0, smi):
     return launches1, launches2
 
 
+# phase 8
+RANK_WALL_S = 240.0      # wall limit of each group of spawned ranks
+MODEL_REL_TOL_8B = 1e-5  # B = 88 a rank may round batched calls otherwise
+FLIP_MARGIN = 1e-6       # |u - exp(dH)| under which a flipped accept is reported
+# 8c against one process summing in the ranks' batches and order (exact),
+# and against the plain single process (one batch, autograd's own float32
+# sum over frequencies): the second limit is about 4x its dt readings and
+# 7x its model readings; a control fault must break each (PERF.md, phase 8)
+DT_REL_TOL_8C, MODEL_REL_TOL_8C = 1e-5, 1e-4
+DT_REL_TOL_8C_PLAIN, MODEL_REL_TOL_8C_PLAIN = 3e-2, 2e-3
+TINY_C = 4
+
+
+def tiny_inputs(torch, dev):
+    """Phase 8c's problem (the tiny flagship, fused on the card), models
+    and sampler controls."""
+    from hmcmt2d_tpu_torch.entry import flagship_problem
+    from hmcmt2d_tpu_torch.sampler import adapt as A
+    from hmcmt2d_tpu_torch.sampler import hmc as H
+
+    problem, m0 = flagship_problem(tiny=True, device=dev)
+    rng = np.random.default_rng(2)
+    m = torch.as_tensor(m0 + 0.05 * rng.standard_normal((TINY_C, len(m0))),
+                        dtype=torch.float32, device=dev)
+    opts = H.HMCOptions(dt=0.02, steps_lo=2, steps_hi=3, log_sig_lo=float(np.log(1e-4)),
+                        log_sig_hi=float(np.log(10.0)), reg_param=1.0)
+    return problem, m, opts, A.WarmupOptions(alpha_pool="median")
+
+
+def serial_mesh_vg(torch, problem, n_chain, n_freq, fault=None):
+    """The potential of an (n_chain x n_freq) mesh in one process, in the
+    ranks' batches and order: each chain block's value and gradient summed
+    in float64 over its frequency blocks, as ShardedSampler.potential_vg
+    sums them over the freq group (two ranks add in either order alike).
+    ``fault`` makes it a control: "prior_scale" gives every frequency block
+    the whole prior (at the start the prior is 0, so its effect stays near
+    the float32 drift and only the exact limits can catch it);
+    "freq_block" makes every frequency block solve the first one's (the
+    plain limits must catch it)."""
+    obs, w = (torch.as_tensor(a, device=problem.device) for a in problem.cube_arrays())
+    freqs = np.asarray(problem.fwd.data.freqs)
+    k = len(freqs) // n_freq
+
+    def vg(m, m_ref, fac=None):
+        n = m.shape[0] // n_chain
+        tots, preds = [], []
+        for cb in range(n_chain):
+            rows, tot, cubes = slice(cb * n, (cb + 1) * n), 0.0, []
+            for fb in range(n_freq):
+                fs = slice(0, k) if fault == "freq_block" else slice(fb * k, (fb + 1) * k)
+                mm = m[rows].detach().requires_grad_(True)
+                with torch.enable_grad():
+                    U, (mis, mn, cube) = problem.potential_cube(
+                        mm, m_ref[rows], 1.0, freqs[fs], obs[fs], w[fs],
+                        prior_scale=1.0 if fault == "prior_scale" else 1.0 / n_freq)
+                    (g,) = torch.autograd.grad(U.sum(), mm)
+                parts = (U.detach(), mis.detach(), mn.detach(), g)
+                tot = tot + torch.cat([p.reshape(n, -1).double() for p in parts], 1)
+                cubes.append(cube.detach().reshape(n, k, -1))
+            tots.append(tot)
+            preds.append(torch.cat(cubes, 1).flatten(1))
+        tot = torch.cat(tots)
+        dts = [p.dtype for p in parts]
+        return ((tot[:, 0].to(dts[0]), (tot[:, 1].to(dts[1]), tot[:, 2].to(dts[2]),
+                                        torch.cat(preds))), tot[:, 3:].to(dts[3]))
+
+    return vg
+
+
+def sharded_rank(dev, n_chain, n_freq, job):
+    """One rank of phase 8: ``job`` "flagship" runs phase 5's three samples
+    through ShardedSampler.run, "tiny" a 4-iteration median-pooled warmup
+    and a 2-sample run; launch counts set to 0 just before, read just
+    after."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.parallel.multichain import ShardedSampler, make_device_mesh
+    from hmcmt2d_tpu_torch.sampler import hmc as H
+
+    mesh = make_device_mesh(n_chain, n_freq, device=dev)
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "device": f"{dev} {torch.cuda.get_device_name(dev)}"}
+    if job == "flagship":
+        problem, _, m, m_ref = flagship_inputs(torch, dev)
+        ss = ShardedSampler(problem, 1.0, mesh, amortize=False)
+        mass = H.identity_mass(problem.n_param, torch.float32, dev)
+        torch.cuda.synchronize()
+        FF.reset_launches()
+        t0 = time.perf_counter()
+        res = ss.run(hmc_options(H), mass, m, m_ref, 3, SEED)
+        torch.cuda.synchronize()
+        lf = res.lf_steps[:, 0].cpu().numpy()
+        evals = 1 + int(lf.sum())
+    else:
+        problem, m, opts, wopts = tiny_inputs(torch, dev)
+        ss = ShardedSampler(problem, 1.0, mesh, amortize=False)
+        torch.cuda.synchronize()
+        FF.reset_launches()
+        t0 = time.perf_counter()
+        wres, state, wmass, info = ss.warmup(opts, m, m, 4, SEED, wopts)
+        res = ss.run(dataclasses.replace(opts, dt=float(info.dt)), wmass, state.m, m, 2,
+                     SEED, init_state=state)
+        torch.cuda.synchronize()
+        lf = np.concatenate([wres.lf_steps[:, 0].cpu().numpy(),
+                             res.lf_steps[:, 0].cpu().numpy()])
+        evals = 1 + int(lf.sum())
+        out["dt"] = float(info.dt)
+    out.update(wall_s=time.perf_counter() - t0, launches=FF.launches(), evals=evals,
+               models=res.models.cpu().numpy(), accepts=res.accepts.cpu().numpy(),
+               stats=res.stats.cpu().numpy(), lf=lf)
+    return out
+
+
+def spawn_group(torch, n_chain, n_freq, backend, job):
+    from hmcmt2d_tpu_torch.parallel.multichain import spawn_ranks
+
+    t0 = time.perf_counter()
+    try:
+        outs = spawn_ranks(sharded_rank, n_chain * n_freq, args=(n_chain, n_freq, job),
+                           backend=backend, timeout_s=RANK_WALL_S)
+    except Exception as e:  # noqa: BLE001 - reported, then the phase fails
+        fail(f"sharded ranks ({n_chain} x {n_freq}, {backend}, {job}) failed: "
+             f"{type(e).__name__}: {e}")
+    return outs, time.perf_counter() - t0
+
+
+def flip_margin(torch, vg, opts, mass, m, m_ref, models, i, c):
+    """|u - exp(min(dH, 0))| of chain c at sample i of phase 5, from the
+    state it left sample i - 1 in: how close that accept was to flipping."""
+    from hmcmt2d_tpu_torch.sampler import hmc as H
+
+    m_prev = m if i == 0 else torch.as_tensor(models[i - 1], device=m.device)
+    state = H.sample_chain_init(vg, m_prev, m_ref)
+    _, _, _, alpha, _ = H.make_sample_step(vg, opts)(
+        state, H.generator(SEED, H.STREAM_MAIN, i, m.device), m_ref, opts.dt, mass)
+    gen = H.generator(SEED, H.STREAM_MAIN, i, m.device)
+    torch.randint(opts.steps_lo, opts.steps_hi + 1, (), generator=gen, device=m.device)
+    mass.draw(gen, m.shape)
+    u = torch.rand(m.shape[0], generator=gen, dtype=torch.float64, device=m.device)
+    return abs(float(u[c]) - float(alpha[c]))
+
+
+def launch_check(name, out):
+    want = {"schur_factor": out["evals"], "bt_sweep_fwd": 14 * out["evals"],
+            "bt_sweep_bwd": 14 * out["evals"]}
+    if out["launches"] != want:
+        fail(f"{name} rank {out['rank']}: launches {out['launches']} != {want} for "
+             f"{out['evals']} fused evals")
+
+
+def check_sharded(torch, problem, m0, vg, opts, mass, m, m_ref, res5, hmc5_s, smi):
+    """Phase 8: 8a to 8d (see the module docstring); returns the per-rank
+    launch counts of 8a, 8b and 8c."""
+    problem_flagship, m0_flagship = problem, m0
+    from hmcmt2d_tpu_torch.sampler import adapt as A
+    from hmcmt2d_tpu_torch.sampler import hmc as H
+    from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg
+
+    want = {k: getattr(res5, k).cpu().numpy() for k in ("models", "stats", "accepts")}
+    n_s = want["models"].shape[0]
+
+    # 8a: one NCCL rank, bit for bit
+    (a,), wall_a = spawn_group(torch, 1, 1, "nccl", "flagship")
+    same = {k: bool(np.array_equal(a[k], want[k])) for k in want}
+    say({"phase": "8a", "mesh": [1, 1], "backend": a["backend"], "device": a["device"],
+         "bit_exact_with_phase5": same, "launches": a["launches"], "evals": a["evals"],
+         "rank_wall_s": a["wall_s"], "group_wall_s": wall_a})
+    if not all(same.values()):
+        fail(f"8a: the (1 x 1) NCCL run differs from phase 5: {same}")
+    launch_check("8a", a)
+
+    # 8b: two gloo ranks on the card, B = 88 each
+    outs_b, wall_b = spawn_group(torch, 2, 1, "gloo", "flagship")
+    b = outs_b[0]
+    for o in outs_b[1:]:
+        for k in ("models", "stats", "accepts"):
+            if not np.array_equal(o[k], b[k]):
+                fail(f"8b: rank {o['rank']}'s {k} differ from rank 0's")
+    flips = np.argwhere(b["accepts"] != want["accepts"])
+    margins = [flip_margin(torch, vg, opts, mass, m, m_ref, want["models"], int(i), int(c))
+               for i, c in flips]
+    keep = np.setdiff1d(np.arange(C), flips[:, 1]) if len(flips) else np.arange(C)
+    rel = float(np.abs(b["models"][:, keep] - want["models"][:, keep]).max()
+                / np.abs(want["models"][:, keep]).max())
+    wall_ranks = max(o["wall_s"] for o in outs_b)
+    say({"phase": "8b", "mesh": [2, 1], "card": smi,
+         "devices": [o["device"] for o in outs_b], "backend": b["backend"],
+         "systems_per_rank": C // 2 * problem.fwd.data.n_freq * 2,
+         "flipped_accepts": flips.tolist(),
+         "flip_margins": margins, "model_max_rel_err": rel,
+         "model_rel_tol": MODEL_REL_TOL_8B,
+         "launches": [o["launches"] for o in outs_b], "evals": [o["evals"] for o in outs_b],
+         "rank_wall_s": [o["wall_s"] for o in outs_b], "group_wall_s": wall_b,
+         "samples_per_s_per_chip_two_ranks": C * n_s / wall_ranks,
+         "ms_per_eval_two_ranks": wall_ranks * 1e3 / b["evals"],
+         "samples_per_s_per_chip_phase5": C * n_s / hmc5_s,
+         "ms_per_eval_phase5": hmc5_s * 1e3 / int(res5.lf_steps[:, 0].sum())})
+    if len(flips) > 1 or any(mg >= FLIP_MARGIN for mg in margins):
+        fail(f"8b: accepts {flips.tolist()} differ from phase 5 (margins {margins})")
+    if not rel <= MODEL_REL_TOL_8B:
+        fail(f"8b: models differ from phase 5 by {rel:.3e} relative")
+    for o in outs_b:
+        launch_check("8b", o)
+
+    # 8c: (2 chains x 2 freq), four gloo ranks, against one process on the
+    # card: held exactly to the process that evaluates the potential in the
+    # ranks' batches and summation order, and within looser limits to the
+    # plain single-process run (one batch, autograd's own sum over
+    # frequencies), since in float32 a warmup amplifies that rounding
+    # (PERF.md, phase 8); two faulty serial runs are the controls that show
+    # each set of limits catching a wrong sharded path
+    outs_c, wall_c = spawn_group(torch, 2, 2, "gloo", "tiny")
+    problem, mt, opts_t, wopts = tiny_inputs(torch, m.device)
+    c0 = outs_c[0]
+    cmp = {}
+    for name, vg_t in (("serial_mesh", serial_mesh_vg(torch, problem, 2, 2)),
+                       ("plain", make_potential_vg(problem, 1.0)),
+                       ("control_prior_scale",
+                        serial_mesh_vg(torch, problem, 2, 2, "prior_scale")),
+                       ("control_freq_block",
+                        serial_mesh_vg(torch, problem, 2, 2, "freq_block"))):
+        t0 = time.perf_counter()
+        wres, state, wmass, info = A.warmup(vg_t, opts_t, mt, mt, 4, SEED, wopts)
+        ref = H.run_hmc(vg_t, dataclasses.replace(opts_t, dt=float(info.dt)),
+                        wmass, state.m, mt, 2, SEED, init_state=state)
+        torch.cuda.synchronize()
+        ref_models = ref.models.cpu().numpy()
+        cmp[name] = {"dt": float(info.dt),
+                     "dt_rel_err": abs(c0["dt"] - float(info.dt)) / float(info.dt),
+                     "accepts_equal": bool(np.array_equal(c0["accepts"],
+                                                          ref.accepts.cpu().numpy())),
+                     "model_max_rel_err": float(np.abs(c0["models"] - ref_models).max()
+                                                / np.abs(ref_models).max()),
+                     "seconds": time.perf_counter() - t0}
+    say({"phase": "8c", "mesh": [2, 2], "backend": c0["backend"],
+         "devices": [o["device"] for o in outs_c], "chains": TINY_C, "dt": c0["dt"],
+         "against_single_process": cmp, "dt_rel_tol": DT_REL_TOL_8C,
+         "model_rel_tol": MODEL_REL_TOL_8C, "plain_dt_rel_tol": DT_REL_TOL_8C_PLAIN,
+         "plain_model_rel_tol": MODEL_REL_TOL_8C_PLAIN,
+         "launches": [o["launches"] for o in outs_c], "evals": [o["evals"] for o in outs_c],
+         "rank_wall_s": [o["wall_s"] for o in outs_c], "group_wall_s": wall_c})
+
+    def within(name, dt_tol, model_tol):
+        c = cmp[name]
+        return (c["dt_rel_err"] <= dt_tol and c["accepts_equal"]
+                and c["model_max_rel_err"] <= model_tol)
+
+    for o in outs_c:
+        if o["dt"] != c0["dt"] or not np.array_equal(o["models"], c0["models"]):
+            fail(f"8c: rank {o['rank']} disagrees with rank 0")
+        launch_check("8c", o)
+    if not within("serial_mesh", DT_REL_TOL_8C, MODEL_REL_TOL_8C):
+        fail(f"8c: against the ranks' summation order {cmp['serial_mesh']}")
+    if not within("plain", DT_REL_TOL_8C_PLAIN, MODEL_REL_TOL_8C_PLAIN):
+        fail(f"8c: against the plain single process {cmp['plain']}")
+    for name, dt_tol, model_tol in (
+            ("control_prior_scale", DT_REL_TOL_8C, MODEL_REL_TOL_8C),
+            ("control_freq_block", DT_REL_TOL_8C_PLAIN, MODEL_REL_TOL_8C_PLAIN)):
+        if within(name, dt_tol, model_tol):
+            fail(f"8c: limits ({dt_tol}, {model_tol}) do not catch the {name} fault: "
+                 f"{cmp[name]}")
+    check_sharded_cli(problem_flagship, m0_flagship, smi)
+    return {"8a": [a["launches"]], "8b": [o["launches"] for o in outs_b],
+            "8c": [o["launches"] for o in outs_c]}
+
+
+def check_sharded_cli(problem, m0, smi):
+    """8d: ``hmcmt2d-torch run`` in two gloo processes sharing the card,
+    joined with --coordinator, on phase 7's files cut to burn-in 4,
+    ``masswarmup: 2`` and 4 main samples: rank 0 alone prints and writes
+    every output file and the checkpoint."""
+    import tempfile
+
+    from hmcmt2d_tpu_torch.parallel.multichain import free_port
+
+    startup = (STARTUP.replace("burninsamples: 8", "burninsamples: 4")
+               .replace("totalsamples:  16", "totalsamples:  10")
+               .replace("masswarmup:    4", "masswarmup:    2"))
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        write_run_files(problem, m0, d, startup)
+        ck, port = d / "run.ckpt.npz", free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "hmcmt2d_tpu_torch.cli", "run", str(d / "startup"),
+             "--outdir", str(d), "--checkpoint", str(ck), "--checkpoint-every", "2",
+             "--backend", "gloo", "--coordinator", f"localhost:{port}",
+             "--num-processes", "2", "--process-id", str(r)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=RANK_WALL_S) for p in procs]
+        except subprocess.TimeoutExpired:
+            fail(f"8d: the two ranks ran past {RANK_WALL_S} s")
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail(f"8d: rank {r} returned {p.returncode}:\n{err[-4000:]}")
+        missing = [n for n in output_names(8) if not (d / n).exists()]
+        with np.load(ck) as z:
+            kind, rows, n_warm = str(z["path"]), z["models"].shape[0], int(z["n_warm"])
+            finite = bool(np.isfinite(z["stats"]).all())
+            acc = float(z["accepts"][n_warm:].mean())
+    log0, log1 = outs[0][0], outs[1][0]
+    secs = phase_seconds(log0)
+    say({"phase": "8d", "cli_run": "hmcmt2d-torch run, 2 gloo ranks on one card",
+         "card": smi, "wall_s": wall, "phase_s": secs, "checkpoint_path": kind,
+         "rows": int(rows), "n_warm": n_warm, "main_accept_rate": acc,
+         "main_samples_per_s_per_chip": 8 * 4 / secs["main"] if secs["main"] else None,
+         "rank1_printed": [ln for ln in log1.splitlines() if "[hmcmt2d]" in ln]})
+    if missing:
+        fail(f"8d: missing output files {missing}")
+    if "device mesh: chains=2 x freq=1" not in log0 or "[hmcmt2d]" in log1:
+        fail("8d: the run was not sharded over the two ranks, or rank 1 printed")
+    if kind != "sharded" or rows != 10 or n_warm != 6 or not finite:
+        fail(f"8d: checkpoint {kind} with {rows} rows, n_warm {n_warm}, finite {finite}")
+
+
 def main() -> None:
     try:
         import torch
@@ -486,7 +859,6 @@ def main() -> None:
         f"(matmul and cudnn); peaks for {peak_key}: fp32 {flops_peak / 1e12:g} "
         f"TFLOP/s, {bw_peak / 1e12:g} TB/s")
 
-    from hmcmt2d_tpu_torch.entry import flagship_problem
     from hmcmt2d_tpu_torch.models.forward import SolveConfig, make_forward
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
     from hmcmt2d_tpu_torch.ops import kernel_build
@@ -501,15 +873,9 @@ def main() -> None:
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    problem, m0 = flagship_problem(device=dev)
+    problem, m0, m, m_ref = flagship_inputs(torch, dev)
     if problem.fwd.cfg.solver_method != "fused":
         fail(f"default config on the GPU is {problem.fwd.cfg}, not fused")
-    m0_t = torch.as_tensor(m0, dtype=torch.float32, device=dev)
-    problem = realistic(problem, m0_t)
-    rng = np.random.default_rng(1)
-    m = (m0_t + 0.01 * torch.as_tensor(rng.standard_normal((C, len(m0))),
-                                       dtype=torch.float32, device=dev))
-    m_ref = m0_t.expand(C, -1)
     say(f"[setup] flagship {problem.mesh.nz}x{problem.mesh.ny} cells, "
         f"{problem.fwd.data.n_data} data, {problem.n_param} parameters, C={C}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -571,9 +937,7 @@ def main() -> None:
     del ref, g_ref
 
     # phase 5: a few HMC iterations on the main path
-    opts = H.HMCOptions(dt=1e-3, steps_lo=4, steps_hi=4,
-                        log_sig_lo=float(np.log(1e-4)),
-                        log_sig_hi=float(np.log(10.0)), reg_param=1.0)
+    opts = hmc_options(H)
     mass = H.identity_mass(problem.n_param, torch.float32, dev)
     init = H.ChainState(m=m, grad=g, misfit=misfit, mnorm=mnorm, pred=pred)
     n_samples = 3
@@ -597,6 +961,10 @@ def main() -> None:
     # phase 7: the inversion run through the command line
     run_launches = check_cli_run(torch, problem, m0, smi)
 
+    # phase 8: the sharded sampler in spawned ranks
+    sharded_launches = check_sharded(torch, problem, m0, vg, opts, mass, m, m_ref, res,
+                                     hmc_s, smi)
+
     # phase 6
     replaces = {
         "schur_factor": "hmcmt2d_tpu/ops/pallas_factor.py:137",
@@ -615,7 +983,9 @@ def main() -> None:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "share_of_bound": r["share_of_bound"],
                 "library_ms": r["library_ms"],
-                "launches_cli_run": [c[k] for c in run_launches]}
+                "launches_cli_run": [c[k] for c in run_launches],
+                "launches_sharded_per_rank": {ph: [c[k] for c in counts_]
+                                              for ph, counts_ in sharded_launches.items()}}
                for k, r in kres.items()]
     say({"kernels": kernels})
     say(smi_line())

@@ -9,6 +9,13 @@ PyTorch counterpart of ``hmcmt2d_tpu/cli.py``:
 Runs on the GPU (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs on the CPU.  Nothing falls back to the CPU or to a
 kernel's plain version on its own.
+
+Several processes shard a run over a (chains, freq) mesh, one rank a GPU:
+
+    torchrun --nproc-per-node 4 -m hmcmt2d_tpu_torch.cli run startup --freq-devices 2
+    hmcmt2d-torch run startup --coordinator host:port --num-processes N --process-id i
+
+Rank 0 alone prints the progress and writes the output files.
 """
 
 from __future__ import annotations
@@ -72,34 +79,113 @@ def _warmup_cfg(args, solve_cfg):
         refine_iters=max(solve_cfg.refine_iters, 1) if ws == "fused" else 3)
 
 
+def _device_mesh(args, cfg, data, dev):
+    """The (chains, freq) mesh of this run's ranks, or None: single-process
+    on request (--no-shard), and with a warning when the ranks, chains and
+    frequencies do not divide."""
+    import torch.distributed as dist
+
+    from .parallel.multichain import make_device_mesh
+
+    n_proc = dist.get_world_size() if dist.is_initialized() else 1
+    if args.no_shard or (n_proc == 1 and args.freq_devices == 1):
+        return None
+    kf = args.freq_devices
+    if n_proc % kf or data.n_freq % kf or cfg.n_chains % (n_proc // kf):
+        _say(f"WARNING: cannot shard chains={cfg.n_chains} freqs={data.n_freq} "
+             f"over {n_proc} processes (freq_devices={kf}); running "
+             f"single-process batched on rank 0. Adjust --chains/--freq-devices "
+             f"or pass --no-shard.")
+        return None
+    _say(f"device mesh: chains={n_proc // kf} x freq={kf} (warmup + "
+         f"checkpointing run sharded)")
+    return make_device_mesh(n_proc // kf, kf, device=dev)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _say(msg: str) -> None:
+    if _rank() == 0:
+        print(f"[hmcmt2d] {msg}", flush=True)
+
+
 def cmd_run(args):
+    import contextlib
+    import os
+
+    import torch.distributed as dist
+
     from .io.startup import read_startup
-    from .sampler import diagnostics as D
-    from .sampler import outputs as O
+    from .parallel.multichain import distributed_init
     from .sampler.driver import run_inversion
 
-    dev = _device(args)
-    cfg, mesh, sigma2d, data, obs, err = read_startup(args.startupfile, device=dev)
-    if args.chains:
-        cfg.n_chains = args.chains
-    if args.samples:
-        cfg.total_samples = args.samples
-    if args.seed is not None:
-        cfg.seed = args.seed
-    solve_cfg = _solve_cfg(args, dev)
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"[hmcmt2d] device={dev} ({name}) chains={cfg.n_chains} "
-          f"samples={cfg.total_samples} solve={solve_cfg.solver_method} "
-          f"{str(solve_cfg.solve_dtype).removeprefix('torch.')}")
+    # several processes (torchrun, or --coordinator): join their group
+    joined = distributed_init(
+        args.coordinator or None, args.num_processes, args.process_id,
+        backend=None if args.backend == "auto" else args.backend,
+        device=None if args.device == "cuda" else args.device)
+    try:
+        dev = joined if joined is not None else _device(args)
+        cfg, mesh, sigma2d, data, obs, err = read_startup(args.startupfile, device=dev)
+        if args.chains:
+            cfg.n_chains = args.chains
+        if args.samples:
+            cfg.total_samples = args.samples
+        if args.seed is not None:
+            cfg.seed = args.seed
+        solve_cfg = _solve_cfg(args, dev)
+        name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        _say(f"device={dev} ({name}) chains={cfg.n_chains} "
+             f"samples={cfg.total_samples} solve={solve_cfg.solver_method} "
+             f"{str(solve_cfg.solve_dtype).removeprefix('torch.')}")
+        dev_mesh = _device_mesh(args, cfg, data, dev)
+        if joined is not None and dev_mesh is None:
+            # the run is single-process, on rank 0: every rank leaves the
+            # group first, so that nothing rank 0 runs alone waits on a peer
+            rank = _rank()
+            dist.destroy_process_group()
+            joined = None
+            if rank != 0:
+                return 0
 
-    run = run_inversion(cfg, mesh, sigma2d, data, obs, err,
-                        solve_cfg=solve_cfg, device=dev,
-                        checkpoint_path=args.checkpoint or None,
-                        checkpoint_every=args.checkpoint_every,
-                        checkpoint_stride=args.checkpoint_stride,
-                        resume=args.resume, verbose=not args.quiet,
-                        progress_every=args.progress_every,
-                        warmup_solve_cfg=_warmup_cfg(args, solve_cfg))
+        profiler = contextlib.nullcontext()
+        if args.profile:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                             if dev.type == "cuda" else [])
+            profiler = profile(activities=acts)
+        with profiler as prof:
+            run = run_inversion(cfg, mesh, sigma2d, data, obs, err,
+                                solve_cfg=solve_cfg, device=dev, device_mesh=dev_mesh,
+                                checkpoint_path=args.checkpoint or None,
+                                checkpoint_every=args.checkpoint_every,
+                                checkpoint_stride=args.checkpoint_stride,
+                                resume=args.resume, verbose=not args.quiet,
+                                progress_every=args.progress_every,
+                                warmup_solve_cfg=_warmup_cfg(args, solve_cfg))
+        if args.profile:
+            os.makedirs(args.profile, exist_ok=True)
+            trace = os.path.join(args.profile, f"trace_rank{_rank()}.json")
+            prof.export_chrome_trace(trace)
+            print(f"[hmcmt2d] profiler trace written to {trace}", flush=True)
+        if _rank() == 0:
+            _write_outputs(args, cfg, run)
+        return 0
+    finally:
+        if joined is not None:
+            dist.destroy_process_group()
+
+
+def _write_outputs(args, cfg, run):
+    """The summary lines and the output files of a finished run."""
+    from .sampler import diagnostics as D
+    from .sampler import outputs as O
+
     problem, result, wall = run.problem, run.result, run.wall_time
 
     S, C, P = result.models.shape
@@ -120,7 +206,6 @@ def cmd_run(args):
         print(f"[hmcmt2d] split-R-hat: max={rhat.max():.3f} "
               f"median={np.median(rhat):.3f}")
     print(D.misfit_summary(result.stats))
-    return 0
 
 
 def cmd_forward(args):
@@ -144,7 +229,7 @@ def cmd_forward(args):
     return 0
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="hmcmt2d-torch",
                                  description="2D MT Bayesian inversion, PyTorch/CUDA")
     ap.add_argument("--device", default="cuda",
@@ -162,6 +247,10 @@ def main(argv=None):
     runp.add_argument("--chains", type=int, default=0)
     runp.add_argument("--samples", type=int, default=0)
     runp.add_argument("--seed", type=int, default=None)
+    runp.add_argument("--freq-devices", type=int, default=1,
+                      help="ranks on the frequency axis of the process mesh")
+    runp.add_argument("--no-shard", action="store_true",
+                      help="force single-process batched sampling")
     runp.add_argument("--outdir", default=".")
     runp.add_argument("--checkpoint", default="",
                       help="checkpoint file path (enables periodic dumps)")
@@ -183,14 +272,29 @@ def main(argv=None):
                       help="hybrid schedule: engine for the warmup phase "
                            "(auto = thomas when the main engine is fused; "
                            "same = no hybrid)")
+    runp.add_argument("--profile", default="",
+                      help="write a torch.profiler trace of the run to this "
+                           "directory (trace_rank<r>.json)")
+    # several processes: torchrun sets RANK/WORLD_SIZE/LOCAL_RANK, or these
+    runp.add_argument("--coordinator", default="",
+                      help="host:port of rank 0 for a multi-process run")
+    runp.add_argument("--num-processes", type=int, default=None)
+    runp.add_argument("--process-id", type=int, default=None)
+    runp.add_argument("--backend", default="auto", choices=["auto", "nccl", "gloo"],
+                      help="collectives backend (auto: nccl when each rank of "
+                           "the host has a GPU of its own, else gloo; ranks "
+                           "sharing one card need gloo)")
     runp.set_defaults(func=cmd_run)
 
     fwdp = sub.add_parser("forward", help="forward-model the startup model")
     fwdp.add_argument("startupfile")
     fwdp.add_argument("-o", "--output", default="predicted.dat")
     fwdp.set_defaults(func=cmd_forward)
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     # complex64 solves are held to float32 accuracy: no TF32 in matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -71,3 +71,66 @@ def entry(device=None):
         return U, misfit, grad
 
     return step, (m0_t,)
+
+
+def _dryrun_rank(device, n_devices: int) -> dict:
+    """One rank of :func:`dryrun_multichip`."""
+    import dataclasses
+
+    from .parallel.multichain import ShardedSampler, make_device_mesh
+    from .sampler import adapt as A
+    from .sampler import hmc as H
+
+    problem, m0 = flagship_problem(tiny=True, device=device)
+    # (chains, freq) with freq | n_freq, both axes used where they can be
+    n_freq = problem.fwd.data.n_freq
+    kf = next((k for k in (2, 4) if n_devices % k == 0 and n_freq % k == 0), 1)
+    mesh = make_device_mesh(n_devices // kf, kf, device=device)
+    C, P = 2 * (n_devices // kf), len(m0)
+    rdt = problem.fwd.cfg.real_dtype
+    m_start = torch.as_tensor(m0, dtype=rdt, device=device).expand(C, P).contiguous()
+    opts = H.HMCOptions(dt=0.02, steps_lo=2, steps_hi=3,
+                        log_sig_lo=float(np.log(1e-4)), log_sig_hi=float(np.log(10.0)),
+                        reg_param=1.0)
+
+    # the production recipe: a hybrid schedule, warmup under another engine
+    # with median alpha pooling over the gathered chains, then the main
+    # engine from the warmed-up models, a second segment continued with
+    # key_offset, and a dense-mass step
+    cfg_w = dataclasses.replace(problem.fwd.cfg,
+                                refine_iters=problem.fwd.cfg.refine_iters + 1)
+    problem_w = dataclasses.replace(problem, fwd=dataclasses.replace(problem.fwd,
+                                                                     cfg=cfg_w))
+    wres, state, wmass, info = ShardedSampler(problem_w, 1.0, mesh).warmup(
+        opts, m_start, m_start, 2, 0, A.WarmupOptions(alpha_pool="median"))
+    assert tuple(wres.models.shape) == (2, C, P) and float(info.dt) > 0
+    ss = ShardedSampler(problem, 1.0, mesh)
+    res = ss.run(opts, wmass, state.m, m_start, 1, 0)
+    res2 = ss.run(opts, wmass, res.final.m, m_start, 1, 0, init_state=res.final,
+                  key_offset=1)
+    eye = torch.eye(P, dtype=rdt, device=device)
+    dense = H.MassMatrix(sqrt_m=eye, inv_m=eye, diagonal=False)
+    res3 = ss.run(opts, dense, res2.final.m, m_start, 1, 1, init_state=res2.final,
+                  key_offset=2)
+    for r in (res, res2, res3):
+        assert tuple(r.models.shape) == (1, C, P)
+        assert tuple(r.pred.shape) == (1, C, problem.fwd.data.n_data)
+        assert bool(torch.isfinite(r.stats).all())
+    return {"mesh": (n_devices // kf, kf), "chains": C, "dt": float(info.dt),
+            "misfit": res3.stats[-1, :, 0].tolist()}
+
+
+def dryrun_multichip(n_devices: int, device=None, timeout_s: float = 600.0) -> list[dict]:
+    """A sharded sampling step of the tiny flagship over ``n_devices``
+    ranks spawned on this host (after ``__graft_entry__.dryrun_multichip``).
+    ``device=None`` means the GPUs: one rank each with NCCL when there are
+    ``n_devices`` of them, else gloo ranks sharing them (raises without a
+    GPU); ``device="cpu"`` spawns gloo ranks on the CPU.  Returns each
+    rank's summary; raises if a rank fails or runs past ``timeout_s``."""
+    from .parallel.multichain import rank_device, spawn_ranks
+
+    cpu = rank_device(device).type == "cpu"
+    nccl = not cpu and torch.cuda.device_count() >= n_devices
+    return spawn_ranks(_dryrun_rank, n_devices, args=(n_devices,),
+                       backend="nccl" if nccl else "gloo",
+                       device="cpu" if cpu else None, timeout_s=timeout_s)

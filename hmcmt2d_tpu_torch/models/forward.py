@@ -328,8 +328,10 @@ class ForwardOperator:
     rx: RxInterp
     cfg: SolveConfig
 
-    def _omegas(self, sigma2d: torch.Tensor) -> torch.Tensor:
-        return 2.0 * np.pi * torch.as_tensor(self.data.freqs, dtype=sigma2d.dtype,
+    def _omegas(self, sigma2d: torch.Tensor, freqs=None) -> torch.Tensor:
+        """Angular frequencies of ``freqs`` (default: every survey frequency)."""
+        freqs = self.data.freqs if freqs is None else freqs
+        return 2.0 * np.pi * torch.as_tensor(freqs, dtype=sigma2d.dtype,
                                              device=sigma2d.device)
 
     def merged_stencil(self, sigma2d: torch.Tensor) -> M.Stencil:
@@ -341,12 +343,14 @@ class ForwardOperator:
                            for a, b in zip(st_te, st_tm)))
 
     @torch.no_grad()
-    def factor_at(self, sigma2d: torch.Tensor) -> S.Factorization:
+    def factor_at(self, sigma2d: torch.Tensor, freqs=None) -> S.Factorization:
         """Factorise the merged (freq x mode) interior systems at this model:
         the reusable factor that :meth:`both_mode_solutions`,
         :meth:`response_cube` and :meth:`predict` take as ``fac``.  Not
-        differentiated (it only ever preconditions the solve)."""
-        omegas = self._omegas(sigma2d)
+        differentiated (it only ever preconditions the solve).  ``freqs``
+        (default: the survey's) selects the frequencies, as the
+        frequency-sharded path does for its own share."""
+        omegas = self._omegas(sigma2d, freqs)
         st = self.merged_stencil(sigma2d)
         rdt = self.cfg.real_dtype
         om = omegas.to(rdt).reshape((-1,) + (1,) * st.m.ndim)
@@ -355,23 +359,25 @@ class ForwardOperator:
         return S.factorize(sys, dtype=self.cfg.solve_dtype,
                            method=self.cfg.solver_method)
 
-    def both_mode_solutions(self, sigma2d: torch.Tensor,
+    def both_mode_solutions(self, sigma2d: torch.Tensor, freqs=None,
                             fac: S.Factorization | None = None):
         """(fields_te, fields_tm), each (nfreq, ..., nz+1, ny+1), from one
         batched factor and solve over the stacked (freq x mode) systems;
-        ``fac``: an optional stale factor from :meth:`factor_at`."""
-        omegas = self._omegas(sigma2d)
+        ``freqs`` as in :meth:`factor_at`; ``fac``: an optional stale factor
+        from :meth:`factor_at` over the same frequencies."""
+        omegas = self._omegas(sigma2d, freqs)
         st = self.merged_stencil(sigma2d)
         bc = boundary_grids_both(self.mesh, sigma2d, omegas, self.cfg.solve_dtype)
         fields = solve_dirichlet(st, omegas, bc, self.cfg, fac=fac)
         return fields[..., 0, :, :], fields[..., 1, :, :]
 
-    def response_cube(self, sigma2d: torch.Tensor,
+    def response_cube(self, sigma2d: torch.Tensor, freqs=None,
                       fac: S.Factorization | None = None) -> torch.Tensor:
         """(..., nfreq, nrx, ncomp) responses in ``data_comp`` order, with the
-        leading chain axes of ``sigma2d``."""
-        omegas = self._omegas(sigma2d)
-        fields_te, fields_tm = self.both_mode_solutions(sigma2d, fac)
+        leading chain axes of ``sigma2d``; ``freqs`` as in :meth:`factor_at`
+        (then nfreq is ``len(freqs)``)."""
+        omegas = self._omegas(sigma2d, freqs)
+        fields_te, fields_tm = self.both_mode_solutions(sigma2d, freqs, fac)
         E, H = rx_fields_te(omegas, self.mesh, sigma2d, fields_te, self.rx)
         Ey, Hx = rx_fields_tm(omegas, self.mesh, sigma2d, fields_tm, self.rx)
         Z = {"XY": E / H, "YX": Ey / Hx}
@@ -397,7 +403,7 @@ class ForwardOperator:
                 fac: S.Factorization | None = None) -> torch.Tensor:
         """Predicted data at the observed (freq, rx, comp) triples, chain
         axes of ``sigma2d`` leading: (..., ndata)."""
-        cube = self.response_cube(sigma2d, fac)
+        cube = self.response_cube(sigma2d, fac=fac)
         flat = cube.reshape(cube.shape[:-3] + (-1,))
         idx = torch.as_tensor(self.data.flat_index, device=flat.device)
         return flat[..., idx]

@@ -109,6 +109,45 @@ class InverseProblem:
             cols.append(self.wm_matvec(eye).cpu())
         return torch.cat(cols).numpy().T
 
+    # -- dense-cube data terms (the frequency-sharded path) ------------------
+    def cube_arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        """Observations and weights scattered onto the dense (nfreq, nrx,
+        ncomp) cube, zeros where unobserved: the cube misfit with these
+        weights equals the masked misfit, and its frequency axis splits
+        across ranks."""
+        d = self.fwd.data
+        shape = (d.n_freq, d.n_rx, d.n_comp)
+        obs_cube = np.zeros(shape, self.obs.dtype).reshape(-1)
+        w_cube = np.zeros(shape, np.float64).reshape(-1)
+        obs_cube[d.flat_index] = self.obs
+        w_cube[d.flat_index] = self.weights
+        return obs_cube.reshape(shape), w_cube.reshape(shape)
+
+    def factor_state_cube(self, m: torch.Tensor, freqs):
+        """:meth:`factor_state` over the frequencies ``freqs`` only."""
+        return self.fwd.factor_at(self.sigma2d(m.detach()), freqs=freqs)
+
+    def potential_cube(self, m: torch.Tensor, m_ref: torch.Tensor, reg: float,
+                       freqs, obs_cube, w_cube, prior_scale: float = 1.0,
+                       fac=None):
+        """The potential with the data term over the frequencies ``freqs``
+        and their rows of :meth:`cube_arrays`.  No collectives here: a rank
+        of a k-way frequency split passes ``prior_scale = 1/k``, so that the
+        sum over the k ranks of this value and of its gradient is the global
+        potential and gradient.  Returns (U, (misfit, mnorm, cube)), the
+        cube flattened to (..., nfreq_local * nrx * ncomp)."""
+        dev = self.device
+        cube = self.fwd.response_cube(self.sigma2d(m), freqs=freqs, fac=fac)
+        # flat and contiguous, as the masked misfit reduces it
+        flat = cube.reshape(cube.shape[:-3] + (-1,))
+        obs = torch.as_tensor(obs_cube, device=dev).reshape(-1)
+        w = torch.as_tensor(w_cube, device=dev).reshape(-1)
+        res = w * (flat - obs)
+        sq = res.real ** 2 + res.imag ** 2 if res.is_complex() else res ** 2
+        misfit = 0.5 * sq.sum(dim=-1)
+        mnorm = prior_scale * reg * self.model_norm(m, m_ref)
+        return misfit + mnorm, (misfit, mnorm, flat)
+
     def potential(self, m: torch.Tensor, m_ref: torch.Tensor, reg: float,
                   fac=None):
         """U(m) = data misfit + reg * model norm, the HMC potential energy.

@@ -4,7 +4,10 @@ PyTorch counterpart of ``hmcmt2d_tpu/sampler/adapt.py``: Nesterov dual
 averaging of the log step size toward a target acceptance (Hoffman & Gelman
 2014, Algorithm 5) and windowed diagonal mass estimation from the warmup
 draws (Stan's expanding slow windows, shrunk toward unit mass).  All chains
-in the batch are pooled for the acceptance statistic and the variance.
+in the batch are pooled for the acceptance statistic and the variance; with
+a ``pool`` (the chains process group of a sharded run) all chains of every
+rank are, so the sharded warmup adapts like the single-process one of the
+same chains.
 
 The warmup is a Python loop over iterations; the step size, the mass and
 the window sums are tensors carried in a :class:`WarmupCarry`, and the
@@ -23,6 +26,7 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..utils.collectives import all_gather_cat, chain_rows
 from .hmc import (STREAM_WARMUP, STREAM_WARMUP_ROW, ChainState, HMCOptions,
                   HMCResult, MassMatrix, generator, make_sample_step,
                   sample_chain_init, _pred_cast)
@@ -117,14 +121,19 @@ class WarmupCarry(NamedTuple):
     alpha_acc: tuple    # (iterations, sum of pooled alphas)
 
 
-def warmup_carry_init(potential_vg, opts: HMCOptions, m0, m_ref) -> WarmupCarry:
-    P = m0.shape[-1]
-    kw = dict(dtype=m0.dtype, device=m0.device)
-    state = sample_chain_init(potential_vg, m0, m_ref)
-    da0 = _da_init(torch.tensor(opts.dt, **kw))
+def carry_from_state(state: ChainState, dt: float) -> WarmupCarry:
+    """A fresh adapter at ``state``: dual averaging started at ``dt``, unit
+    diagonal mass, no window or acceptance sums yet."""
+    P = state.m.shape[-1]
+    kw = dict(dtype=state.m.dtype, device=state.m.device)
+    da0 = _da_init(torch.tensor(dt, **kw))
     acc0 = (torch.zeros((), **kw), torch.zeros(P, **kw), torch.zeros(P, **kw))
     alpha_acc0 = (torch.zeros((), **kw), torch.zeros((), **kw))
     return WarmupCarry(state, da0, torch.ones(P, **kw), acc0, alpha_acc0)
+
+
+def warmup_carry_init(potential_vg, opts: HMCOptions, m0, m_ref) -> WarmupCarry:
+    return carry_from_state(sample_chain_init(potential_vg, m0, m_ref), opts.dt)
 
 
 def warmup_keys(seed: int, it_offset: int, n: int, device) -> list[torch.Generator]:
@@ -144,7 +153,8 @@ def _median(x: torch.Tensor) -> torch.Tensor:
 def warmup_scan(potential_vg: Callable, opts: HMCOptions, m_ref,
                 carry: WarmupCarry, keys: Sequence, ends, w: WarmupOptions,
                 sample_dtype=torch.float32, factor_fn: Callable | None = None,
-                fixed_mass: MassMatrix | None = None, draws: Sequence | None = None):
+                fixed_mass: MassMatrix | None = None, draws: Sequence | None = None,
+                pool=None):
     """One warmup segment: ``len(keys)`` adaptation iterations, iteration i
     drawing from the generator ``keys[i]`` and closing a mass window where
     ``ends[i]``.
@@ -154,10 +164,31 @@ def warmup_scan(potential_vg: Callable, opts: HMCOptions, m_ref,
     Gauss-Newton / Wm schedule (pass ``ends`` all False).  ``draws[i] =
     (L, p0, u)`` replaces iteration i's random draws (the tests' seam).
 
+    ``pool`` (a process group whose ranks hold consecutive chain shards of
+    equal size, in rank order) pools the statistics over every chain of the
+    group: each pooled mean or median is taken over the rows gathered from
+    every rank, the same operation on the same (C, ...) batch as the
+    single-process warmup, so the two agree bit for bit (a sum of per-rank
+    sums rounds otherwise, and in float32 the adapted step size then drifts
+    by ~1e-3); the window shrinkage counts the global chains, and each rank
+    draws the global batch's numbers and keeps its rows.
+
     Returns the advanced :class:`WarmupCarry` and the per-iteration outputs
     stacked: (models, stats, accepts, pred, lf_steps)."""
     C = m_ref.shape[0]
-    step = make_sample_step(potential_vg, opts, factor_fn=factor_fn)
+    rows, n_global = chain_rows(pool, C)
+    step = make_sample_step(potential_vg, opts, factor_fn=factor_fn, rows=rows,
+                            n_global=n_global)
+
+    def pooled(x):
+        return x if pool is None else all_gather_cat(x, pool)
+
+    def pool_mean(x):
+        return pooled(x).mean(dim=0)
+
+    def pool_alpha(alpha):
+        return _median(pooled(alpha)) if w.alpha_pool == "median" else pool_mean(alpha)
+
     state, da, inv_m, (n, s1, s2), (an, asum) = carry
     rdt = da.log_eps.dtype
     outs = []
@@ -172,19 +203,18 @@ def warmup_scan(potential_vg: Callable, opts: HMCOptions, m_ref,
         # a diverged trajectory (non-finite dH) is a rejection with
         # acceptance probability 0: one NaN would poison dual averaging
         alpha = torch.where(torch.isfinite(alpha), alpha, torch.zeros_like(alpha))
-        alpha_mean = (_median(alpha) if w.alpha_pool == "median"
-                      else alpha.mean(dim=0)).to(rdt)
+        alpha_mean = pool_alpha(alpha).to(rdt)
         da = _da_update(da, alpha_mean, w)
 
         n = n + 1.0
-        s1 = s1 + new.m.mean(dim=0)
-        s2 = s2 + (new.m * new.m).mean(dim=0)
+        s1 = s1 + pool_mean(new.m)
+        s2 = s2 + pool_mean(new.m * new.m)
         if bool(is_end):
             # pooled variance over the window's draws of all chains, shrunk
             # toward unit mass; dual averaging restarts at the current step
             mean = s1 / n
             var = torch.clamp(s2 / n - mean * mean, min=1e-12)
-            cnt = n * C
+            cnt = n * n_global
             inv_m = (cnt / (cnt + 5.0)) * var + 1e-3 * (5.0 / (cnt + 5.0))
             da = _da_init(torch.exp(da.log_eps))
             n, s1, s2 = torch.zeros_like(n), torch.zeros_like(s1), torch.zeros_like(s2)

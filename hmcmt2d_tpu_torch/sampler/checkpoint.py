@@ -9,7 +9,12 @@ written atomically after each checkpointed segment.  Two differences:
 * a ``framework = "torch"`` entry marks the file as the port's.
   :func:`load_checkpoint` refuses a file without it: a JAX run's random
   stream cannot be continued by the port, so its checkpoint cannot resume
-  here.
+  here;
+* a ``path`` entry, ``"single"`` or ``"sharded"``, says which kind of run
+  wrote it: the sharded run carries the whole response cube as the state's
+  predicted data, the single-process one the observed data only, so a
+  checkpoint resumes only on the kind of path that wrote it (on any mesh,
+  for a sharded one: its state is the gathered, global one).
 """
 
 from __future__ import annotations
@@ -24,19 +29,25 @@ from . import hmc as H
 
 FORMAT_VERSION = 3
 FRAMEWORK = "torch"
+PATHS = ("single", "sharded")
 
 
 def save_checkpoint(path: str, *, n_done: int, state: H.ChainState, key: int,
                     dt: float, mass: H.MassMatrix, m_ref,
                     models, stats, accepts, pred, lf_steps, start_stats,
-                    start_pred, n_warm: int, wall_time: float) -> None:
-    """Atomic (write-then-rename) checkpoint dump; ``key`` is the seed."""
+                    start_pred, n_warm: int, wall_time: float,
+                    path_kind: str = "single") -> None:
+    """Atomic (write-then-rename) checkpoint dump; ``key`` is the seed and
+    ``path_kind`` one of :data:`PATHS`."""
+    if path_kind not in PATHS:
+        raise ValueError(f"path_kind {path_kind!r} is not one of {PATHS}")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(
             f,
             version=FORMAT_VERSION,
             framework=FRAMEWORK,
+            path=path_kind,
             n_done=n_done,
             n_warm=n_warm,
             wall_time=wall_time,
@@ -62,9 +73,10 @@ def save_checkpoint(path: str, *, n_done: int, state: H.ChainState, key: int,
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, device) -> dict:
+def load_checkpoint(path: str, device, path_kind: str | None = None) -> dict:
     """Load a checkpoint the port wrote: the chain state, mass matrix and
-    reference models as tensors on ``device``, the outputs as numpy."""
+    reference models as tensors on ``device``, the outputs as numpy.  With
+    ``path_kind`` it refuses a file that another kind of run wrote."""
     with np.load(path) as z:
         if "framework" not in z.files or str(z["framework"]) != FRAMEWORK:
             raise ValueError(
@@ -74,6 +86,12 @@ def load_checkpoint(path: str, device) -> dict:
                 "continue that run. Resume it with the package that wrote it.")
         if int(z["version"]) != FORMAT_VERSION:
             raise ValueError(f"unsupported checkpoint version {z['version']}")
+        wrote = str(z["path"]) if "path" in z.files else "single"
+        if path_kind is not None and wrote != path_kind:
+            raise ValueError(
+                f"{path} was written by a {wrote} run and cannot resume a "
+                f"{path_kind} one (their states carry the predicted data in "
+                "different layouts); resume it on the kind of run that wrote it")
 
         def t(name):
             return torch.as_tensor(z[name], device=device)
@@ -84,6 +102,7 @@ def load_checkpoint(path: str, device) -> dict:
         mass = H.MassMatrix(sqrt_m=t("mass_sqrt"), inv_m=t("mass_inv"),
                             diagonal=bool(z["mass_diagonal"]))
         return dict(
+            path=wrote,
             n_done=int(z["n_done"]),
             n_warm=int(z["n_warm"]),
             wall_time=float(z["wall_time"]),

@@ -1,8 +1,10 @@
 """High-level inversion driver: config + files -> chains -> posterior.
 
 PyTorch counterpart of ``hmcmt2d_tpu/sampler/driver.py`` (the reference's
-runHMCscript.jl / runHMCSampler wiring), single device: all chains advance
-together as one batch through the PDE solves.  The run is
+runHMCscript.jl / runHMCSampler wiring): all chains advance together as one
+batch through the PDE solves, in one process or, with a ``device_mesh``,
+sharded over the ranks of a (chains, freq) mesh
+(:class:`hmcmt2d_tpu_torch.parallel.multichain.ShardedSampler`).  The run is
 
 1. warmup over the burn-in iterations: dual-averaged step size and windowed
    diagonal mass (:mod:`.adapt`), in segments;
@@ -13,7 +15,7 @@ together as one batch through the PDE solves.  The run is
 
 Every draw is a pure function of (seed, stream, global index), so segmented
 and resumed runs reproduce an unbroken one exactly (``sampler/hmc.py``
-``generator``).
+``generator``), and a sharded run the single-process one.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import to_numpy
 from ..io.startup import HMCConfig
@@ -72,6 +75,45 @@ def make_potential_vg(problem: InverseProblem, reg: float):
 def make_factor_fn(problem: InverseProblem):
     """Batched model -> merged-mode factorisation (trajectory amortisation)."""
     return problem.factor_state
+
+
+class BatchedSampler:
+    """The single-process sampler behind the calls of
+    :class:`~hmcmt2d_tpu_torch.parallel.multichain.ShardedSampler`, so that
+    :func:`run_inversion` drives either one."""
+
+    def __init__(self, problem: InverseProblem, reg: float, amortize: bool = True):
+        self.potential_vg = make_potential_vg(problem, reg)
+        self.factor_fn = make_factor_fn(problem) if amortize else None
+
+    def carry_init(self, opts, m0, m_ref) -> A.WarmupCarry:
+        return A.warmup_carry_init(self.potential_vg, opts, m0, m_ref)
+
+    def warmup_scan(self, opts, m_ref, carry, keys, ends, w, fixed_mass=None):
+        return A.warmup_scan(self.potential_vg, opts, m_ref, carry, keys, ends, w,
+                             factor_fn=self.factor_fn, fixed_mass=fixed_mass)
+
+    def run(self, opts, mass, m_start, m_ref, n_samples, seed, init_state=None,
+            key_offset=0) -> H.HMCResult:
+        return H.run_hmc(self.potential_vg, opts, mass, m_start, m_ref, n_samples,
+                         seed, init_state=init_state, key_offset=key_offset,
+                         factor_fn=self.factor_fn)
+
+    def shared_mass(self, build) -> H.MassMatrix:
+        return build()
+
+    def mask_pred(self, pred):
+        return pred
+
+
+def make_sampler(problem: InverseProblem, reg: float, amortize: bool,
+                 device_mesh=None):
+    """A :class:`BatchedSampler`, or over ``device_mesh`` a ShardedSampler."""
+    if device_mesh is None:
+        return BatchedSampler(problem, reg, amortize)
+    from ..parallel.multichain import ShardedSampler
+
+    return ShardedSampler(problem, reg, device_mesh, amortize=amortize)
 
 
 def mass_kind(cfg: HMCConfig) -> str:
@@ -143,6 +185,27 @@ def _segment_plan(n_main: int, every: int) -> list[int]:
     return segs
 
 
+def warmup_segments(eng, opts: H.HMCOptions, m_ref, carry: A.WarmupCarry, seed: int,
+                    it_offset: int, ends, w: A.WarmupOptions, seg: int,
+                    fixed_mass: H.MassMatrix | None = None, on_segment=None):
+    """The warmup iterations ``it_offset + [0, len(ends))`` through
+    ``eng.warmup_scan`` (a :class:`BatchedSampler` or a ShardedSampler) in
+    segments of ``seg`` (0: one), each drawing from the warmup stream at its
+    global iteration index, so any segmentation gives the same carry.
+    ``on_segment(done, n, carry, outs, seconds)`` follows each segment;
+    returns the advanced carry."""
+    done = 0
+    for n in _segment_plan(len(ends), seg):
+        t_seg = time.time()
+        carry, outs = eng.warmup_scan(
+            opts, m_ref, carry, A.warmup_keys(seed, it_offset + done, n, m_ref.device),
+            ends[done:done + n], w, fixed_mass=fixed_mass)
+        done += n
+        if on_segment is not None:
+            on_segment(done, n, carry, outs, time.time() - t_seg)
+    return carry
+
+
 class _Outputs:
     """Per-iteration records of a run, gathered on the host."""
 
@@ -168,9 +231,16 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
                   verbose: bool = False,
                   progress_every: int = 0,
                   warmup_solve_cfg: SolveConfig | None = None,
-                  device=None) -> InversionRun:
+                  device=None, device_mesh=None) -> InversionRun:
     """End-to-end inversion on ``device`` (None: the GPU, and raises
     without one); ``solve_cfg`` None is the device's default engine.
+
+    With ``device_mesh`` (a (chains, freq) DeviceMesh over every rank, from
+    ``parallel.multichain.make_device_mesh``; ``device`` is then this rank's)
+    each phase runs sharded, in the same order and with the same draws as
+    the single-process run, which it equals up to the order of reduction.
+    Every rank returns the gathered run; rank 0 alone prints and writes the
+    checkpoint.  A checkpoint resumes only on the kind of path that wrote it.
 
     With ``checkpoint_path`` the main phase runs in ``checkpoint_every``-
     sample segments and dumps the sampler state after every
@@ -195,32 +265,40 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
     dev = problem.device
     rdt = problem.fwd.cfg.real_dtype
 
-    vg = make_potential_vg(problem, cfg.reg_param)
     opts = hmc_options(cfg)
     # trajectory amortisation is off under the fused engine, the JAX
     # package's rule (its fused factor is cheap next to the 10 extra
     # refinement solves of a stale one); on the card that is not measured yet
     amortize = cfg.amortize and problem.fwd.cfg.solver_method != "fused"
-    factor_fn = make_factor_fn(problem) if amortize else None
+    eng = make_sampler(problem, cfg.reg_param, amortize, device_mesh)
 
     hybrid = (warmup_solve_cfg is not None and cfg.adapt and not resume
               and warmup_solve_cfg != problem.fwd.cfg)
     if hybrid:
         problem_w = dataclasses.replace(
             problem, fwd=dataclasses.replace(problem.fwd, cfg=warmup_solve_cfg))
-        vg_w = make_potential_vg(problem_w, cfg.reg_param)
         amortize_w = cfg.amortize and warmup_solve_cfg.solver_method != "fused"
-        factor_fn_w = make_factor_fn(problem_w) if amortize_w else None
+        eng_w = make_sampler(problem_w, cfg.reg_param, amortize_w, device_mesh)
     else:
-        problem_w, vg_w, factor_fn_w = problem, vg, factor_fn
+        problem_w, eng_w = problem, eng
+    path_kind = "single" if device_mesh is None else "sharded"
+    rank0 = device_mesh is None or dist.get_rank() == 0
 
     def log(msg):
-        if verbose:
+        if verbose and rank0:
             print(f"[hmcmt2d] {msg}", flush=True)
 
-    def rate(n_it, t_seg):
-        dt_s = time.time() - t_seg
-        return f"{n_it * n_chains / dt_s:.2f} samples/s, {dt_s:.3f} s"
+    def rate(n_it, secs):
+        return f"{n_it * n_chains / secs:.2f} samples/s, {secs:.3f} s"
+
+    def logged(phase, total):
+        """A warmup_segments callback: the outputs kept, one line logged."""
+        def on_segment(done, n, carry, wout, secs):
+            out.add(*wout)
+            log(f"{phase} {done}/{total}: "
+                f"misfit={float(wout[1][-1, :, 0].mean()):.4g} "
+                f"dt={float(torch.exp(carry.da.log_eps)):.4g} ({rate(n, secs)})")
+        return on_segment
 
     t0 = time.time()
     wall_prev = 0.0
@@ -230,7 +308,7 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
     if resume:
         if not (checkpoint_path and os.path.exists(checkpoint_path)):
             raise FileNotFoundError(f"no checkpoint to resume: {checkpoint_path}")
-        ck = CK.load_checkpoint(checkpoint_path, dev)
+        ck = CK.load_checkpoint(checkpoint_path, dev, path_kind)
         n_warm, n_done = ck["n_warm"], ck["n_done"]
         state, mass = ck["state"], ck["mass"]
         seed = ck["key"]
@@ -247,8 +325,12 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
         m_start = H.random_homogeneous_start(seed, m0_file, n_chains, rdt, dev)
         m_ref = m_start   # refModel = strModel (HMCSampler.jl:108-109)
         # with adaptation on, the warmup (and the dense phase) replace this
-        mass = (H.identity_mass(problem.n_param, rdt, dev) if cfg.adapt
-                else make_mass(problem, cfg, rdt))
+        if cfg.adapt:
+            mass = H.identity_mass(problem.n_param, rdt, dev)
+        elif mass_kind(cfg) == "wm":
+            mass = eng.shared_mass(lambda: make_mass(problem, cfg, rdt))
+        else:       # the identity, or on every rank the gaussnewton error
+            mass = make_mass(problem, cfg, rdt)
         if cfg.adapt:
             n_warm = min(cfg.burnin, n_samples)
             wopts = A.WarmupOptions(target_accept=cfg.target_accept,
@@ -256,24 +338,14 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
             seg_w = checkpoint_every or progress_every or n_warm
             ends = (A.window_schedule(n_warm, wopts) if wopts.adapt_mass
                     else np.zeros(n_warm, bool))
-            carry = A.warmup_carry_init(vg_w, opts, m_start, m_ref)
+            carry = eng_w.carry_init(opts, m_start, m_ref)
             state0 = carry.state
-            done_w = 0
-            for n_sw in _segment_plan(n_warm, seg_w):
-                t_seg = time.time()
-                carry, wout = A.warmup_scan(
-                    vg_w, opts, m_ref, carry,
-                    A.warmup_keys(seed, done_w, n_sw, dev),
-                    ends[done_w: done_w + n_sw], wopts, factor_fn=factor_fn_w)
-                done_w += n_sw
-                out.add(*wout)
-                log(f"warmup {done_w}/{n_warm}: "
-                    f"misfit={float(wout[1][-1, :, 0].mean()):.4g} "
-                    f"dt={float(torch.exp(carry.da.log_eps)):.4g} "
-                    f"({rate(n_sw, t_seg)})")
+            carry = warmup_segments(eng_w, opts, m_ref, carry, seed, 0, ends, wopts,
+                                    seg_w, on_segment=logged("warmup", n_warm))
             mass, info = A.warmup_finalize(carry)
             state = carry.state
             start_stats, start_pred = A.start_row(state0, seed, m_start.shape)
+            start_pred = eng_w.mask_pred(start_pred)
             opts = dataclasses.replace(opts, dt=float(info.dt))
             # dense-metric phase: M (Gauss-Newton or Wm) at the pooled
             # warmed-up model, then the step size re-adapted under it
@@ -290,11 +362,11 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
                 t_m = time.time()
                 m_repr = (m_start if state is None else state.m).mean(dim=0)
                 if mkind == "gn":
-                    mass = gauss_newton_mass(problem, m_repr, cfg.reg_param,
-                                             jac_problem=problem_w)
+                    mass = eng.shared_mass(lambda: gauss_newton_mass(
+                        problem, m_repr, cfg.reg_param, jac_problem=problem_w))
                 else:
-                    mass = H.dense_mass(problem.wm_dense()
-                                        + 1e-8 * np.eye(problem.n_param), rdt, dev)
+                    mass = eng.shared_mass(lambda: H.dense_mass(
+                        problem.wm_dense() + 1e-8 * np.eye(problem.n_param), rdt, dev))
                 log(f"dense mass ({mkind}) built in {time.time() - t_m:.3f}s")
                 n_c = min(int(cfg.mass_warmup), max(0, n_samples - n_warm))
                 if n_c > 0:
@@ -303,34 +375,15 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
                     t_i = time.time()
                     if state is None:
                         # a fresh main-engine evaluation at the warmed-up models
-                        carry = A.warmup_carry_init(vg, opts_c, m_start, m_ref)
+                        carry = eng.carry_init(opts_c, m_start, m_ref)
                         log(f"mass-warmup init: main-engine gradient in "
                             f"{time.time() - t_i:.3f} s")
                     else:
-                        P = state.m.shape[-1]
-                        kw = dict(dtype=state.m.dtype, device=dev)
-                        carry = A.WarmupCarry(
-                            state=state,
-                            da=A._da_init(torch.tensor(opts_c.dt, **kw)),
-                            inv_m=torch.ones(P, **kw),
-                            acc=(torch.zeros((), **kw), torch.zeros(P, **kw),
-                                 torch.zeros(P, **kw)),
-                            alpha_acc=(torch.zeros((), **kw), torch.zeros((), **kw)))
-                    seg_c = checkpoint_every or progress_every or n_c
-                    done_c = 0
-                    for n_sc in _segment_plan(n_c, seg_c):
-                        t_seg = time.time()
-                        carry, wout = A.warmup_scan(
-                            vg, opts_c, m_ref, carry,
-                            A.warmup_keys(seed, n_warm + done_c, n_sc, dev),
-                            np.zeros(n_sc, bool), wopts_c, factor_fn=factor_fn,
-                            fixed_mass=mass)
-                        done_c += n_sc
-                        out.add(*wout)
-                        log(f"mass-warmup {done_c}/{n_c}: "
-                            f"misfit={float(wout[1][-1, :, 0].mean()):.4g} "
-                            f"dt={float(torch.exp(carry.da.log_eps)):.4g} "
-                            f"({rate(n_sc, t_seg)})")
+                        carry = A.carry_from_state(state, opts_c.dt)
+                    carry = warmup_segments(
+                        eng, opts_c, m_ref, carry, seed, n_warm, np.zeros(n_c, bool),
+                        wopts_c, checkpoint_every or progress_every or n_c,
+                        fixed_mass=mass, on_segment=logged("mass-warmup", n_c))
                     _, info_c = A.warmup_finalize(carry)
                     state = carry.state     # main-engine state: flows on
                     opts = dataclasses.replace(opts, dt=float(info_c.dt))
@@ -353,9 +406,8 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
     segs = _segment_plan(n_main - n_done, every)
     for i_seg, n_seg in enumerate(segs):
         t_seg = time.time()
-        res = H.run_hmc(vg, opts, mass, state.m if state is not None else m_start,
-                        m_ref, n_seg, seed, init_state=state, key_offset=n_done,
-                        factor_fn=factor_fn)
+        res = eng.run(opts, mass, state.m if state is not None else m_start,
+                      m_ref, n_seg, seed, init_state=state, key_offset=n_done)
         state = res.final
         n_done += n_seg
         if start_stats is None:
@@ -364,17 +416,20 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
         log(f"samples {n_done - n_seg + 1}..{n_done}/{n_main}: "
             f"misfit={float(res.stats[-1, :, 0].mean()):.4g} "
             f"accept={float(res.accepts.double().mean()):.2f} "
-            f"dt={opts.dt:.4g} ({rate(n_seg, t_seg)})")
+            f"dt={opts.dt:.4g} ({rate(n_seg, time.time() - t_seg)})")
         # checkpoint every `checkpoint_stride` segments and after the last
         if checkpoint_path and ((i_seg + 1) % max(checkpoint_stride, 1) == 0
                                 or i_seg == len(segs) - 1):
-            models, stats, accepts, pred, lf = out.arrays()
-            CK.save_checkpoint(
-                checkpoint_path, n_done=n_done, state=state, key=seed,
-                dt=opts.dt, mass=mass, m_ref=m_ref, models=models, stats=stats,
-                accepts=accepts, pred=pred, lf_steps=lf,
-                start_stats=start_stats, start_pred=start_pred, n_warm=n_warm,
-                wall_time=wall_prev + time.time() - t0)
+            if rank0:
+                models, stats, accepts, pred, lf = out.arrays()
+                CK.save_checkpoint(
+                    checkpoint_path, n_done=n_done, state=state, key=seed,
+                    dt=opts.dt, mass=mass, m_ref=m_ref, models=models, stats=stats,
+                    accepts=accepts, pred=pred, lf_steps=lf,
+                    start_stats=start_stats, start_pred=start_pred, n_warm=n_warm,
+                    wall_time=wall_prev + time.time() - t0, path_kind=path_kind)
+            if device_mesh is not None:
+                dist.barrier()      # the file is whole before any rank reads it
 
     models, stats, accepts, pred, lf = out.arrays()
     result = H.HMCResult(

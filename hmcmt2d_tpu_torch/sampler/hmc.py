@@ -12,8 +12,10 @@ HMCSampler.jl), with the same deliberate choices:
 Randomness is counter-based: every draw comes from a fresh
 ``torch.Generator`` seeded from (seed, stream, global index), see
 :func:`generator`, so a run split into segments, or resumed from a
-checkpoint, gives the same samples as one unbroken run.  The streams differ
-from ``jax.random``'s; tests hand both sides the same draws.
+checkpoint, gives the same samples as one unbroken run.  A chain shard of a
+sharded run (``rows``) draws the numbers of the whole batch and keeps its
+own rows, so it equals the single-process run of the same chains.  The
+streams differ from ``jax.random``'s; tests hand both sides the same draws.
 """
 
 from __future__ import annotations
@@ -152,14 +154,28 @@ def _leapfrog(potential_vg: Callable, opts: HMCOptions, mass: MassMatrix,
     return ChainState(m=m, grad=g, misfit=misfit, mnorm=mnorm, pred=pred), p
 
 
+def draw_shape(shape, rows: tuple[int, int] | None, n_global: int | None):
+    """The shape of a batch draw: ``shape`` itself, or with ``rows`` (a
+    chain shard's rows lo:hi of ``n_global`` chains) the global batch's."""
+    return tuple(shape) if rows is None else (n_global,) + tuple(shape[1:])
+
+
+def keep_rows(x: torch.Tensor, rows: tuple[int, int] | None) -> torch.Tensor:
+    return x if rows is None else x[rows[0]:rows[1]]
+
+
 def make_sample_step(potential_vg: Callable, opts: HMCOptions,
-                     factor_fn: Callable | None = None):
+                     factor_fn: Callable | None = None,
+                     rows: tuple[int, int] | None = None,
+                     n_global: int | None = None):
     """The per-iteration kernel, one MH-corrected HMC proposal:
     ``sample_step(state, gen, m_ref, dt, mass, draws=None) -> (new, accept,
     stats, alpha, L)``.  ``draws = (L, p0, u)`` replaces the generator's
     draws (the seam the tests use to hand both frameworks the same numbers).
     ``dt`` and ``mass`` are arguments so that warmup can tune them between
-    iterations; ``factor_fn`` as in :func:`_leapfrog`.
+    iterations; ``factor_fn`` as in :func:`_leapfrog`.  ``rows = (lo, hi)``
+    makes the batch rows lo:hi of ``n_global`` chains: the step draws the
+    momenta and uniforms of all ``n_global`` and keeps its own.
     """
 
     def sample_step(state: ChainState, gen: torch.Generator, m_ref, dt: float,
@@ -168,9 +184,10 @@ def make_sample_step(potential_vg: Callable, opts: HMCOptions,
         if draws is None:
             L = int(torch.randint(opts.steps_lo, opts.steps_hi + 1, (),
                                   generator=gen, device=gen.device))
-            p0 = mass.draw(gen, state.m.shape)
-            u = torch.rand(c, generator=gen, dtype=torch.float64,
-                           device=gen.device)
+            p0 = keep_rows(mass.draw(gen, draw_shape(state.m.shape, rows, n_global)),
+                           rows)
+            u = keep_rows(torch.rand(draw_shape((c,), rows, n_global), generator=gen,
+                                     dtype=torch.float64, device=gen.device), rows)
         else:
             L, p0, u = draws
         ke0 = mass.kinetic(p0)
@@ -233,23 +250,28 @@ def _pred_cast(p: torch.Tensor) -> torch.Tensor:
 def run_hmc(potential_vg: Callable, opts: HMCOptions, mass: MassMatrix,
             m0, m_ref, n_samples: int, seed: int,
             sample_dtype=torch.float32, init_state: ChainState | None = None,
-            key_offset: int = 0, factor_fn: Callable | None = None) -> HMCResult:
+            key_offset: int = 0, factor_fn: Callable | None = None,
+            rows: tuple[int, int] | None = None,
+            n_global: int | None = None) -> HMCResult:
     """Run ``n_samples`` HMC iterations for a batch of chains.
 
     ``potential_vg(m (C, P), m_ref) -> ((U, (misfit, mnorm, pred)), grad)``
     is the batched potential value-and-grad.  ``init_state`` skips the
     evaluation at ``m0``; ``key_offset`` is the number of samples already
     drawn, so segmented runs reproduce an unbroken one exactly.
-    ``factor_fn`` as in :func:`_leapfrog`.
+    ``factor_fn`` as in :func:`_leapfrog`; ``rows`` and ``n_global`` as in
+    :func:`make_sample_step`.
     """
     if n_samples < 1:
         raise ValueError("run_hmc needs n_samples >= 1")
     start = init_state if init_state is not None else sample_chain_init(
         potential_vg, m0, m_ref)
-    step = make_sample_step(potential_vg, opts, factor_fn=factor_fn)
+    step = make_sample_step(potential_vg, opts, factor_fn=factor_fn, rows=rows,
+                            n_global=n_global)
     dev = m0.device
-    ke_init = mass.kinetic(mass.draw(generator(seed, STREAM_START_ROW, 0, dev),
-                                     m0.shape))
+    p_init = mass.draw(generator(seed, STREAM_START_ROW, 0, dev),
+                       draw_shape(m0.shape, rows, n_global))
+    ke_init = keep_rows(mass.kinetic(p_init), rows)
     h_init = start.misfit + start.mnorm + ke_init
     start_stats = torch.stack([start.misfit.to(h_init.dtype),
                                start.mnorm.to(h_init.dtype),

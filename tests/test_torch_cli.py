@@ -146,3 +146,76 @@ def test_module_entry_point():
     out = subprocess.run([sys.executable, "-m", "hmcmt2d_tpu_torch.cli", "run", "--help"],
                          cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "--warmup-solver" in out.stdout
+
+
+def test_multi_process_flags_parse():
+    a = cli.build_parser().parse_args([
+        "run", "s", "--freq-devices", "2", "--no-shard", "--coordinator", "h:29500",
+        "--num-processes", "4", "--process-id", "3", "--backend", "gloo",
+        "--profile", "prof"])
+    assert (a.freq_devices, a.no_shard, a.coordinator, a.num_processes, a.process_id,
+            a.backend, a.profile) == (2, True, "h:29500", 4, 3, "gloo", "prof")
+    d = cli.build_parser().parse_args(["run", "s"])
+    assert (d.freq_devices, d.no_shard, d.coordinator, d.backend, d.profile) == (
+        1, False, "", "auto", "")
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["run", "s", "--backend", "mpi"])
+
+
+@pytest.mark.parametrize("flags,warns", [
+    (["--freq-devices", "2"], True),
+    (["--freq-devices", "2", "--no-shard"], False)], ids=["unshardable", "no-shard"])
+def test_single_process_run_with_shard_flags(startup, tmp_path, capsys, flags, warns):
+    """One process cannot shard 2 frequency ranks: the run warns and goes
+    on single-process; --no-shard asks for that and does not warn.  The
+    second also writes a torch.profiler trace."""
+    prof = tmp_path / "prof"
+    rc = cli.main(["--device", "cpu", "run", str(startup), "--outdir", str(tmp_path),
+                   "--samples", "8", "--quiet", "--profile", str(prof), *flags])
+    log = capsys.readouterr().out
+    assert rc == 0 and ("WARNING: cannot shard" in log) == warns
+    assert "device mesh" not in log
+    assert all(p.exists() for p in _files(tmp_path, 2))
+    assert (prof / "trace_rank0.json").stat().st_size > 0
+
+
+def _two_ranks(startup, out, chains):
+    """``hmcmt2d-torch run`` in two processes joined with --coordinator."""
+    import os
+
+    from hmcmt2d_tpu_torch.parallel.multichain import free_port
+
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hmcmt2d_tpu_torch.cli", "--device", "cpu", "run",
+         str(startup), "--outdir", str(out), "--samples", "8", "--chains", str(chains),
+         "--backend", "gloo", "--coordinator", f"localhost:{port}",
+         "--num-processes", "2", "--process-id", str(r)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    return [o for o, _ in outs]
+
+
+@pytest.mark.parametrize("chains,sharded", [(2, True), (3, False)],
+                         ids=["sharded", "chains-do-not-divide"])
+def test_two_rank_run_writes_each_file_once(startup, tmp_path, chains, sharded):
+    """Two gloo ranks on the CPU: 2 chains shard over them; 3 do not, and
+    rank 0 runs alone after the warning.  Rank 0 alone prints and writes
+    the output files."""
+    out0, out1 = _two_ranks(startup, tmp_path, chains)
+    assert "[hmcmt2d]" not in out1
+    assert ("device mesh: chains=2 x freq=1" in out0) == sharded
+    assert ("WARNING: cannot shard chains=3" in out0) != sharded
+    assert "done in" in out0 and "split-R-hat" in out0
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        p.name for p in _files(tmp_path, chains))
+    lines = (tmp_path / "hmcstatistics_id1.log").read_text().splitlines()
+    assert lines[1].split()[:2] == ["Totalsamples:", "8,"] and len(lines) == 4 + 8

@@ -170,3 +170,60 @@ def test_run_inversion_main_phase_on_the_kernels(cuda_device):
                              "bt_sweep_bwd": 14 * evals}
     assert torch.isfinite(run.result.stats).all()
     assert run.result.final.m.device.type == "cuda"
+
+
+def test_two_rank_sharded_run_on_card(cuda_device):
+    """``dryrun_multichip(2)`` on one card: two gloo ranks sharing it on a
+    (1 chain x 2 freq) mesh, the warmup, the engine switch, a continued
+    segment and a dense-mass step on the fused kernels."""
+    out = entry.dryrun_multichip(2, timeout_s=600)
+    assert len(out) == 2 and out[0] == out[1]
+    assert tuple(out[0]["mesh"]) == (1, 2) and out[0]["dt"] > 0
+    assert np.isfinite(out[0]["misfit"]).all()
+
+
+UNSHARDABLE_STARTUP = """datafile:      obs.dat
+modelfile:     start.mod
+totalsamples:  2
+chains:        3
+seed:          1
+resistivity:   1.0 1e4 0.05
+timeinterval:  0.01
+timestep:      2 2
+"""
+
+
+def test_two_ranks_that_cannot_shard_run_on_rank0_on_card(cuda_device, tmp_path):
+    """Three chains do not divide over two ranks: rank 0 warns, both leave
+    the group, and rank 0 runs alone on the fused kernels, loading them
+    without waiting on rank 1 (which has gone)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from hmcmt2d_tpu_torch.io import write_data, write_model
+    from hmcmt2d_tpu_torch.parallel.multichain import free_port
+
+    mesh, sig, data, obs, err = _tiny_inputs()
+    write_model(tmp_path / "start.mod", mesh, sig)
+    write_data(tmp_path / "obs.dat", data, obs, err)
+    (tmp_path / "startup").write_text(UNSHARDABLE_STARTUP)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hmcmt2d_tpu_torch.cli", "--solver", "fused", "run",
+         str(tmp_path / "startup"), "--outdir", str(tmp_path), "--backend", "gloo",
+         "--coordinator", f"localhost:{port}", "--num-processes", "2",
+         "--process-id", str(r)],
+        cwd=Path(__file__).resolve().parent.parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for p, (_, err_text) in zip(procs, outs):
+        assert p.returncode == 0, err_text[-3000:]
+    assert "WARNING: cannot shard chains=3" in outs[0][0] and "done in" in outs[0][0]
+    assert "[hmcmt2d]" not in outs[1][0]
+    assert (tmp_path / "hmcstatistics_id3.log").exists()

@@ -92,3 +92,18 @@ def test_rx_helpers_match_jax(case):
     for a, b in zip(TF.impedance_to_rho_phase(torch.as_tensor(om), torch.as_tensor(Z)),
                     JF.impedance_to_rho_phase(jnp.asarray(om), jnp.asarray(Z))):
         assert relerr(a, b) < TOL
+
+
+def test_response_cube_on_a_frequency_subset(case):
+    """``freqs=`` solves only those frequencies: the rows of the full cube,
+    also through a factor taken over the same subset."""
+    tprob = case["tprob"]
+    sig = tprob.sigma2d(torch.as_tensor(case["m"]))
+    full = tprob.fwd.response_cube(sig)
+    pick = [3, 1]
+    freqs = np.asarray(tprob.fwd.data.freqs)[pick]
+    sub = tprob.fwd.response_cube(sig, freqs=freqs)
+    assert sub.shape == full[..., pick, :, :].shape
+    assert relerr(sub, full[..., pick, :, :]) < 1e-12
+    fac = tprob.fwd.factor_at(sig, freqs=freqs)
+    assert relerr(tprob.fwd.response_cube(sig, freqs=freqs, fac=fac), sub) < 1e-12

@@ -19,6 +19,7 @@ from __graft_entry__ import _flagship_problem  # noqa: E402
 from hmcmt2d_tpu_torch import convert, entry, make_mesh  # noqa: E402
 from hmcmt2d_tpu_torch.models import forward as TF  # noqa: E402
 from hmcmt2d_tpu_torch.models import posterior as TP  # noqa: E402
+from hmcmt2d_tpu_torch.parallel import multichain  # noqa: E402
 from hmcmt2d_tpu_torch.sampler.hmc import (ChainState, dense_mass,  # noqa: E402
                                            identity_mass)
 from tests.torch_parity import problem_arrays  # noqa: E402
@@ -91,6 +92,16 @@ def test_entry_points_without_gpu_raise(monkeypatch, jax_tiny):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry.entry()
     with pytest.raises(RuntimeError, match="CUDA"):
+        entry.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multichain.rank_device()
+    # under torchrun's variables the rank's device is its GPU, or an error
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multichain.distributed_init()
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA"):
         convert.problem_from_arrays(arrays)
     tprob, _ = entry.flagship_problem(tiny=True, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -132,12 +143,14 @@ def test_import_pulls_in_no_jax():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'jaxlib' or n == 'hmcmt2d_tpu' or n.startswith('hmcmt2d_tpu.'))\n"
         "print(len([n for n in sys.modules if n.startswith('hmcmt2d_tpu_torch')]))\n"
-        "print(bad)\n")
+        "print(bad)\n"
+        "print(all(n in sys.modules for n in ('hmcmt2d_tpu_torch.parallel.multichain',\n"
+        "                                     'hmcmt2d_tpu_torch.utils.collectives')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n_loaded, bad = out.stdout.strip().splitlines()
-    assert int(n_loaded) >= 15
+    n_loaded, bad, sharded_loaded = out.stdout.strip().splitlines()
+    assert int(n_loaded) >= 18 and sharded_loaded == "True"
     assert bad == "[]"
 
 
@@ -151,7 +164,7 @@ def _imported_names(path: Path):
 
 def test_no_jax_import_in_source():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 15
+    assert len(files) >= 18 and PKG / "parallel" / "multichain.py" in files
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]

@@ -103,3 +103,115 @@ def chain_models(m0: np.ndarray, n_chains: int, scale: float = 0.1,
     m = m0 + scale * rng.standard_normal((n_chains, len(m0)))
     m[0] = m0
     return m
+
+
+# -- ranks of the sharded tests (spawned by parallel.multichain.spawn_ranks;
+#    they import only the port) ---------------------------------------------
+SHARD_OPTS = dict(dt=0.05, steps_lo=2, steps_hi=3, log_sig_lo=float(np.log(1e-4)),
+                  log_sig_hi=float(np.log(10.0)), reg_param=1.0)
+
+
+def _numpy_tree(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _numpy_tree(v) for k, v in x.items()}
+    return x
+
+
+def _result(res, *extra) -> dict:
+    out = {k: getattr(res, k) for k in ("models", "stats", "accepts", "pred",
+                                        "lf_steps", "start_stats", "start_pred")}
+    out["final_m"] = res.final.m
+    for i, e in enumerate(extra):
+        out[f"extra{i}"] = e
+    return out
+
+
+def sharded_cases(device, arrays, setup, m, cfgs, tmp):
+    """One rank of the (2 chains x 2 freq) group of the sharded tests: the
+    potential and gradient, a run, the warmup in one scan and in segments,
+    and run_inversion checkpointed and resumed and under the Gauss-Newton
+    schedule.  Every value returned is global (the same on every rank)."""
+    torch.set_num_threads(1)
+    from hmcmt2d_tpu_torch import convert
+    from hmcmt2d_tpu_torch.io import HMCConfig
+    from hmcmt2d_tpu_torch.models.forward import SolveConfig
+    from hmcmt2d_tpu_torch.parallel.multichain import ShardedSampler, make_device_mesh
+    from hmcmt2d_tpu_torch.sampler import adapt as A
+    from hmcmt2d_tpu_torch.sampler import driver as D
+    from hmcmt2d_tpu_torch.sampler import hmc as H
+    from hmcmt2d_tpu_torch.utils.collectives import all_gather_cat
+
+    exact = SolveConfig(torch.complex128, 0, "thomas")
+    prob = convert.problem_from_arrays(arrays, exact, device=device)
+    mesh = make_device_mesh(2, 2, device=device)
+    ss = ShardedSampler(prob, 1.0, mesh)
+    mt = torch.as_tensor(m)
+    n_l = mt.shape[0] // 2
+    lo = mesh.get_local_rank("chains") * n_l
+    (U, (mis, mn, _)), g = ss.potential_vg(mt[lo:lo + n_l], mt.flip(0)[lo:lo + n_l])
+    out = {"U": all_gather_cat(U, ss.chains), "misfit": all_gather_cat(mis, ss.chains),
+           "mnorm": all_gather_cat(mn, ss.chains), "grad": all_gather_cat(g, ss.chains)}
+
+    opts = H.HMCOptions(**SHARD_OPTS)
+    mass = H.identity_mass(mt.shape[1], torch.float64, device)
+    run = ss.run(opts, mass, mt, mt, 3, 5)
+    out["run"] = _result(run)
+    eye = torch.eye(mt.shape[1], dtype=torch.float64)
+    res, _state, info = ss.readapt(opts, run.final, mt, 3, 9, A.WarmupOptions(),
+                                   H.MassMatrix(eye, eye, diagonal=False), it_offset=6)
+    out["readapt"] = _result(res, info.dt)
+    for name, seg in (("warmup", 0), ("warmup_seg", 2)):
+        res, _state, wmass, info = ss.warmup(opts, mt, mt, 6, 7, seg=seg)
+        out[name] = _result(res, wmass.inv_m, info.dt)
+
+    def run(cfg_kw, **kw):
+        return D.run_inversion(HMCConfig(**cfg_kw), *setup, n_chains=mt.shape[0],
+                               device=device, solve_cfg=exact, device_mesh=mesh, **kw)
+
+    full = run(cfgs["resume"], checkpoint_path=f"{tmp}/full.npz", checkpoint_every=3)
+    run(cfgs["resume"], n_samples=6, checkpoint_path=f"{tmp}/part.npz",
+        checkpoint_every=3)
+    resumed = run(cfgs["resume"], checkpoint_path=f"{tmp}/part.npz", checkpoint_every=3,
+                  resume=True)
+    out["full"], out["resumed"] = _result(full.result), _result(resumed.result)
+    gn = run(cfgs["gn"])
+    out["gn"] = _result(gn.result, gn.n_warm)
+    return _numpy_tree(out)
+
+
+def median_pool_rank(device) -> dict:
+    """One of two chain ranks of 3 chains each warming up on a quadratic,
+    the global chains 0 and 1 (both on rank 0) stuck behind a cliff that
+    rejects every move: the adapted step size under each pooling (after
+    JAX's test_sharded_median_alpha_pool_survives_stuck_chain)."""
+    torch.set_num_threads(1)
+    from hmcmt2d_tpu_torch.parallel.multichain import make_device_mesh
+    from hmcmt2d_tpu_torch.sampler import adapt as A
+    from hmcmt2d_tpu_torch.sampler import hmc as H
+
+    mesh = make_device_mesh(2, 1, device=device)
+    group = mesh.get_group("chains")
+    C_l, P = 3, 3
+    gid = mesh.get_local_rank("chains") * C_l + torch.arange(C_l)
+    cliff = torch.where(gid < 2, 1e6, 0.0).double()
+
+    def vg(m, m_ref, fac=None):
+        U = 0.5 * (m * m).sum(-1)
+        moved = ((m - m_ref) ** 2).sum(-1) > 1e-20
+        U = U + torch.where(moved, cliff, torch.zeros_like(cliff))
+        return (U, (U, torch.zeros_like(U), torch.zeros(C_l, 1, dtype=U.dtype))), m
+
+    opts = H.HMCOptions(dt=0.5, steps_lo=2, steps_hi=3, log_sig_lo=-50.0,
+                        log_sig_hi=50.0, reg_param=1.0)
+    m0 = torch.zeros(C_l, P, dtype=torch.float64)
+    n_it, dts = 120, {}
+    for pool in ("median", "mean"):
+        # the pooled scan that ShardedSampler.warmup_scan runs
+        carry, _outs = A.warmup_scan(
+            vg, opts, m0, A.warmup_carry_init(vg, opts, m0, m0),
+            A.warmup_keys(0, 0, n_it, device), np.zeros(n_it, bool),
+            A.WarmupOptions(adapt_mass=False, alpha_pool=pool), pool=group)
+        dts[pool] = float(A.warmup_finalize(carry)[1].dt)
+    return dts
