@@ -12,9 +12,11 @@ Phases, each of which exits non-zero on failure:
 3. each kernel against its plain PyTorch version at the shapes of the main
    path (the equilibrated flagship operator at C = 8 chains: B = 176 systems,
    nzi = 55 z-lines, q = 95), with times, the card's bound for the same
-   work, its share of that bound, and a library yardstick; then all three,
-   which are compiled per padded width, at the edges of their templates and
-   at the end of G (random diagonally dominant systems);
+   work, its share of that bound, and a library yardstick; the factor's
+   Newton-Schulz variant (polish = 1) too, and the unrefined solve error of
+   polish 0 and 1 against complex128 thomas on that operator; then all
+   three, which are compiled per padded width, at the edges of their
+   templates and at the end of G (random diagonally dominant systems);
 4. the main path: one batched potential value-and-grad of the flagship at
    full width, C = 8, on the fused kernels, with the launch counts of that
    run, held against the port's own complex128 thomas engine on the card;
@@ -37,6 +39,12 @@ Phases, each of which exits non-zero on failure:
    every rank launches each kernel (1, 14, 14) times a fused eval;
    (d) ``hmcmt2d-torch run`` in two gloo processes joined with
    --coordinator on phase 7's files, cut shorter: rank 0 alone writes;
+9. (a) one-mode surveys at full width: the flagship with Z_XY + tipper and
+   with rho/phase YX only, C = 8 (B = 88 systems), one value-and-grad each
+   on the kernels with its launch counts, held to complex128 thomas;
+   (b) the checkpoint tools on phase 7's run: ``summarize_checkpoint``,
+   ``refresh_extend`` (launches counted against its fused evals), the
+   summary of its checkpoint, and ``map_fit``;
 6. a JSON summary of the kernels, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -59,6 +67,7 @@ C = 8                 # chains of the main path
 SEED = 0
 FACTOR_REL_TOL = 1e-4  # f32 factor, other rounding order over 55 lines
 SWEEP_REL_TOL = 1e-5   # f32 sweeps given the same G
+POLISH_REL_TOL = 1e-5  # polished factor: its two products sum in another order
 U_REL_TOL = 1e-3       # fused complex64 vs complex128 potential (see phase 4)
 GRAD_COS_MIN = 0.999
 # (B, nzi, q): the coprod2 width, Q_MAX, more blocks than two waves, and
@@ -173,6 +182,24 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
         bound_formula="max(8 q^3 nzi B / fp32 peak, (in + G out bytes) / bandwidth)")
     del G_plain
 
+    # the factor's Newton-Schulz variant (polish = 1; not on the main path)
+    G1 = FF.schur_factor(d, oy, oz, polish=1)
+    G1_plain = FF.schur_factor_plain(d, oy, oz, polish=1)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(torch.view_as_real(G1)).all()):
+        fail("schur_factor(polish=1) produced non-finite values")
+    abs_e, rel_e = rel_err(torch, G1, G1_plain)
+    del G1, G1_plain
+    results["schur_factor_polish"] = dict(
+        rel=rel_e, abs=abs_e, tol=POLISH_REL_TOL,
+        kernel_ms=time_ms(torch, lambda: FF.schur_factor(d, oy, oz, polish=1), 5),
+        plain_ms=time_ms(torch, lambda: FF.schur_factor_plain(d, oy, oz, polish=1), 2),
+        library_ms=results["schur_factor"]["library_ms"],
+        library="the factor's: torch.linalg.inv per line (S.bt_factor)",
+        flops=3 * flops, bytes=nbytes,
+        bound_formula="max(24 q^3 nzi B / fp32 peak, (in + G out bytes) / bandwidth)")
+    results["schur_factor_polish"]["solve"] = polish_solve_error(torch, d, oy, oz)
+
     # the sweeps, given the same G
     rng = np.random.default_rng(SEED)
     b = torch.as_tensor((rng.standard_normal((B, nzi, q))
@@ -214,12 +241,41 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
              "achieved_TFLOPs": r["flops"] / r["kernel_ms"] / 1e9,
              "flops": r["flops"], "bytes": r["bytes"],
              "library_ms": r["library_ms"], "library": r["library"],
-             "launches_per_eval": {"schur_factor": 1}.get(name, 14)})
+             "launches_per_eval": {"schur_factor": 1, "schur_factor_polish": 0}.get(name, 14)})
     for name, r in results.items():
         if not r["rel"] <= r["tol"]:
             fail(f"{name}: max relative error {r['rel']:.3e} > {r['tol']:.0e}")
+    solve = results["schur_factor_polish"]["solve"]
+    say({"polish_solve_error": solve})
+    if not solve["err_polish1"] <= solve["err_polish0"]:
+        fail(f"polish = 1 solves worse than polish = 0: {solve}")
     check_edges(torch, d.device)
     return results
+
+
+def polish_solve_error(torch, d, oy, oz) -> dict:
+    """One unrefined factor-solve of the equilibrated flagship system (d,
+    oy, oz) on the kernels with polish 0 and 1, against its complex128
+    thomas solve, for a fixed right-hand side (numpy seed 3); the launches
+    of the polish = 1 factor-solve, counted from 0 just before it."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    rng = np.random.default_rng(3)
+    b = torch.as_tensor(rng.standard_normal(tuple(d.shape))
+                        + 1j * rng.standard_normal(tuple(d.shape)), device=d.device)
+    x_e = S.bt_solve(S.bt_factor(S.InteriorSystem(d.to(torch.complex128), oy.double(),
+                                                  oz.double())), b)
+    out = {}
+    for polish in (0, 1):
+        torch.cuda.synchronize()
+        FF.reset_launches()
+        x = FF.fused_bt_solve(FF.fused_schur_factor(d, oy, oz, polish), b)
+        torch.cuda.synchronize()
+        out[f"launches_polish{polish}"] = FF.launches()
+        out[f"err_polish{polish}"] = float((x - x_e).norm() / x_e.norm())
+    out["ratio"] = out["err_polish0"] / out["err_polish1"]
+    return out
 
 
 def random_system(torch, B, nzi, q, seed, dev):
@@ -320,16 +376,21 @@ def flagship_inputs(torch, dev):
 
 def realistic(problem, m0_t):
     """Observations = the problem's own prediction at the start model plus
-    3% complex noise (numpy seed 0), errors 3% of |obs| (bench.py:45-66)."""
+    3% noise (complex for complex data; numpy seed 0), errors 3% of |obs|
+    (bench.py:45-66)."""
     import torch
 
     with torch.no_grad():
-        obs = problem.predict(m0_t).cpu().numpy().astype(np.complex128)
+        obs = problem.predict(m0_t).cpu().numpy()
     if obs.shape != (problem.fwd.data.n_data,):
         fail(f"prediction at the start model has shape {obs.shape}")
     rng = np.random.default_rng(0)
-    noise = rng.standard_normal(len(obs)) + 1j * rng.standard_normal(len(obs))
-    obs = obs * (1 + 0.03 * noise / np.sqrt(2))
+    if np.iscomplexobj(obs):
+        obs = obs.astype(np.complex128)
+        noise = rng.standard_normal(len(obs)) + 1j * rng.standard_normal(len(obs))
+        obs = obs * (1 + 0.03 * noise / np.sqrt(2))
+    else:       # rho / phase: real data
+        obs = obs.astype(np.float64) * (1 + 0.03 * rng.standard_normal(len(obs)))
     return dataclasses.replace(problem, obs=obs,
                                weights=1.0 / (0.03 * np.abs(obs)))
 
@@ -434,31 +495,28 @@ def output_names(n_chains: int) -> list[str]:
             + [f"hmcstatistics_id{i}.log" for i in range(1, n_chains + 1)])
 
 
-def check_cli_run(torch, problem, m0, smi):
-    """Phase 7: ``hmcmt2d-torch run`` on the flagship, written to files, then
-    resumed; every fused gradient eval launches the factor once and each
-    sweep 14 times.  Returns the launch counts of the two runs."""
-    import tempfile
-
+def check_cli_run(torch, problem, m0, smi, d: Path):
+    """Phase 7: ``hmcmt2d-torch run`` on the flagship, written to files in
+    ``d``, then resumed; every fused gradient eval launches the factor once
+    and each sweep 14 times.  Returns the launch counts of the two runs; the
+    files and the checkpoint ``d / "run.ckpt.npz"`` stay for phase 9b."""
     from hmcmt2d_tpu_torch.sampler import diagnostics as D
 
     n_chains, n_burn, n_mass, n_total, n_resumed = 8, 8, 4, 16, 20
-    with tempfile.TemporaryDirectory() as d:
-        d = Path(d)
-        write_run_files(problem, m0, d, STARTUP)
-        ck = str(d / "run.ckpt.npz")
-        base = ["run", str(d / "startup"), "--outdir", str(d), "--checkpoint", ck,
-                "--checkpoint-every", "2"]
+    write_run_files(problem, m0, d, STARTUP)
+    ck = str(d / "run.ckpt.npz")
+    base = ["run", str(d / "startup"), "--outdir", str(d), "--checkpoint", ck,
+            "--checkpoint-every", "2"]
 
-        rc1, launches1, wall1, log1 = cli_run(torch, base)
-        with np.load(ck) as z:
-            lf1 = z["lf_steps"][:, 0].astype(int)
-        rc2, launches2, wall2, log2 = cli_run(torch, base + ["--samples", str(n_resumed),
-                                                            "--resume"])
-        with np.load(ck) as z:
-            ck_ = {k: z[k] for k in ("models", "stats", "accepts", "lf_steps",
-                                     "n_warm", "dt", "start_stats")}
-        missing = [n for n in output_names(n_chains) if not (d / n).exists()]
+    rc1, launches1, wall1, log1 = cli_run(torch, base)
+    with np.load(ck) as z:
+        lf1 = z["lf_steps"][:, 0].astype(int)
+    rc2, launches2, wall2, log2 = cli_run(torch, base + ["--samples", str(n_resumed),
+                                                        "--resume"])
+    with np.load(ck) as z:
+        ck_ = {k: z[k] for k in ("models", "stats", "accepts", "lf_steps",
+                                 "n_warm", "dt", "start_stats")}
+    missing = [n for n in output_names(n_chains) if not (d / n).exists()]
 
     models, stats, accepts, lf = (ck_[k] for k in ("models", "stats", "accepts", "lf_steps"))
     n_warm = int(ck_["n_warm"])
@@ -836,6 +894,168 @@ def check_sharded_cli(problem, m0, smi):
         fail(f"8d: checkpoint {kind} with {rows} rows, n_warm {n_warm}, finite {finite}")
 
 
+# phase 9
+SINGLE_MODE_SURVEYS = ((("ZXY", "TZY"), "Impedance_Tipper"), (("RhoYX", "PhsYX"), "Rho_Phs"))
+SINGLE_MODE_LAUNCHES = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+
+
+def check_single_mode(torch, m, m_ref, eval_ms_phase4, smi):
+    """9a: each one-mode flagship survey (full width, realistic observations,
+    tipper errors 0.03 absolute; phase 4's models: C = 8, B = 88 systems),
+    one potential value-and-grad on the kernels, launches counted, held to
+    complex128 thomas on the card.  Returns {survey: launch counts}."""
+    from hmcmt2d_tpu_torch.entry import flagship_problem
+    from hmcmt2d_tpu_torch.models.forward import SolveConfig, make_forward
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg
+
+    out = {}
+    for comps, dtype in SINGLE_MODE_SURVEYS:
+        name = "+".join(comps)
+        problem, m0 = flagship_problem(device=m.device, data_comp=comps, data_type=dtype)
+        problem = realistic(problem, torch.as_tensor(m0, dtype=torch.float32,
+                                                     device=m.device))
+        if "TZY" in comps:
+            # the start model is 1-D, so its tipper is rounding noise: the
+            # tipper (dimensionless) takes an absolute error of 0.03, the
+            # usual floor, not 3% of its own noise
+            tip = problem.fwd.data.dt_id == comps.index("TZY")
+            w = np.where(tip, 1.0 / 0.03, problem.weights)
+            problem = dataclasses.replace(problem, weights=w)
+        vg = make_potential_vg(problem, 1.0)
+        torch.cuda.synchronize()
+        FF.reset_launches()
+        t0 = time.perf_counter()
+        (U, _), g = vg(m, m_ref)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = FF.launches()
+        eval_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            vg(m, m_ref)
+            torch.cuda.synchronize()
+            eval_ms.append((time.perf_counter() - t0) * 1e3)
+        prof = profile_eval(torch, vg, m, m_ref)
+        ref = dataclasses.replace(problem, fwd=make_forward(
+            problem.mesh, problem.fwd.data, SolveConfig(torch.complex128, 0, "thomas")))
+        (U_ref, _), g_ref = make_potential_vg(ref, 1.0)(m.double(), m_ref.double())
+        u_rel = float(((U - U_ref).abs() / U_ref.abs()).max())
+        g64 = g.double()
+        cos = float(((g64 * g_ref).sum(-1) / (g64.norm(dim=-1) * g_ref.norm(dim=-1))).min())
+        finite = bool(torch.isfinite(U).all() and torch.isfinite(g).all())
+        say({"phase": "9a", "survey": name, "data_type": dtype, "card": smi,
+             "chains": m.shape[0], "systems": m.shape[0] * problem.fwd.data.n_freq,
+             "n_data": problem.fwd.data.n_data, "launches": counts,
+             "U_max_rel_err": u_rel, "U_rel_tol": U_REL_TOL, "grad_min_cosine": cos,
+             "first_eval_ms": first_ms, "eval_ms": eval_ms,
+             "eval_ms_phase4_two_modes": eval_ms_phase4,
+             "profile": {k: prof[k] for k in ("profiled_wall_ms", "device_ms",
+                                              "device_busy_share", "device_kernels",
+                                              "ours")}})
+        if counts != SINGLE_MODE_LAUNCHES:
+            fail(f"9a {name}: launches {counts} != {SINGLE_MODE_LAUNCHES}")
+        if not finite or not u_rel <= U_REL_TOL or not cos >= GRAD_COS_MIN:
+            fail(f"9a {name}: finite {finite}, U error {u_rel:.3e}, cosine {cos:.6f}")
+        out[name] = counts
+    return out
+
+
+def tool_run(torch, module, argv):
+    """``module.main(argv)`` in-process, launch counts set to 0 just before
+    and read just after: (launches, wall seconds)."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+
+    torch.cuda.synchronize()
+    FF.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = module.main(argv)
+    except Exception as e:  # noqa: BLE001 - reported, then the phase fails
+        import traceback
+
+        traceback.print_exc()
+        fail(f"{module.__name__} raised {type(e).__name__}: {e}")
+    torch.cuda.synchronize()
+    if rc != 0:
+        fail(f"{module.__name__} returned {rc}")
+    return FF.launches(), time.perf_counter() - t0
+
+
+def check_summary(out: Path, n_chains: int) -> dict:
+    names = ["meanModel.model", "stdModel.model", "summary.json"] + [
+        f"hmcstatistics_id{i}.log" for i in range(1, n_chains + 1)]
+    missing = [n for n in names if not (out / n).exists()]
+    summary = json.loads((out / "summary.json").read_text()) if not missing else {}
+    numbers = [v for v in summary.values() if isinstance(v, (int, float))
+               and not isinstance(v, bool)]
+    numbers += [x for v in summary.values() if isinstance(v, list) for x in v]
+    if missing or not np.isfinite(numbers).all():
+        fail(f"9b: summary in {out}: missing {missing} or non-finite values")
+    return summary
+
+
+def check_tools(torch, d: Path, smi, dev):
+    """9b: the checkpoint tools on phase 7's run (files and checkpoint in
+    ``d``), each run as a user runs it, on the card by default.  Returns the
+    launch counts of refresh_extend."""
+    from hmcmt2d_tpu_torch.device import to_numpy
+    from hmcmt2d_tpu_torch.io import read_startup
+    from hmcmt2d_tpu_torch.models.posterior import build_inverse_problem
+    from hmcmt2d_tpu_torch.sampler import hmc as H
+    from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg
+    from hmcmt2d_tpu_torch.tools import map_fit, refresh_extend, summarize_checkpoint
+
+    startup, ck, ck2 = str(d / "startup"), str(d / "run.ckpt.npz"), str(d / "refresh.npz")
+    _, secs1 = tool_run(torch, summarize_checkpoint, [ck, startup, str(d / "art1")])
+    sum1 = check_summary(d / "art1", 8)
+    readapt, samples = 4, 4
+    launches, secs2 = tool_run(torch, refresh_extend, [
+        startup, ck, ck2, "--readapt", str(readapt), "--samples", str(samples),
+        "--seg", "2", "--stride", "1"])
+    with np.load(ck2) as z:
+        rows, n_warm = z["models"].shape[0], int(z["n_warm"])
+        evals = int(z["lf_steps"][:, 0].sum())
+        finite = bool(np.isfinite(z["stats"]).all() and np.isfinite(z["mass_inv"]).all())
+        diagonal = bool(z["mass_diagonal"])
+    want = {"schur_factor": evals, "bt_sweep_fwd": 14 * evals, "bt_sweep_bwd": 14 * evals}
+    _, secs3 = tool_run(torch, summarize_checkpoint, [ck2, startup, str(d / "art2")])
+    sum2 = check_summary(d / "art2", 8)
+
+    report = d / "map_fit.json"
+    _, secs4 = tool_run(torch, map_fit, [startup, "--iters", "8", "--seg", "4", "--regs",
+                                         "1.0", "--chains", "2", "--out", str(report)])
+    rep = json.loads(report.read_text())["regs"]["1.0"]
+    cfg, mesh, sig, data, obs, err = read_startup(startup, device=dev)
+    prob, m0 = build_inverse_problem(mesh, data, obs, err, to_numpy(sig).ravel(),
+                                     sigma_fixed=cfg.sig_fix, device=dev)
+    m_start = H.random_homogeneous_start(cfg.seed, m0, 2, prob.fwd.cfg.real_dtype, dev)
+    (_, (mis0, _, _)), _ = make_potential_vg(prob, 1.0)(m_start, m_start)
+    chi2_start = (mis0 / len(prob.obs)).cpu().tolist()
+    chi2_end = rep["chi2_per_datum_per_chain"]
+    b = int(np.argmin(chi2_end))
+    say({"phase": "9b", "card": smi,
+         "summarize": {"seconds": secs1, "rows": sum1["samples"],
+                       "split_rhat_max": sum1["split_rhat_max"],
+                       "posterior_mean_nrms": sum1.get("posterior_mean_nrms")},
+         "refresh_extend": {"seconds": secs2, "rows": int(rows), "n_warm": n_warm,
+                            "fused_evals": evals, "launches": launches,
+                            "dense_mass": not diagonal, "finite": finite,
+                            "adapted_dt": sum2["adapted_dt"],
+                            "accept_rate": sum2["accept_rate"]},
+         "summarize_refreshed": {"seconds": secs3, "rows": sum2["samples"]},
+         "map_fit": {"seconds": secs4, "chi2_start": chi2_start, "chi2_end": chi2_end,
+                     "chi2_best": rep["chi2_best"]}})
+    if rows != readapt + samples or n_warm != readapt or not finite or diagonal:
+        fail(f"9b: refreshed checkpoint {rows} rows, n_warm {n_warm}, finite {finite}, "
+             f"diagonal mass {diagonal}")
+    if launches != want or evals == 0:
+        fail(f"9b: refresh_extend launches {launches} != {want} for {evals} fused evals")
+    if not np.isfinite(chi2_end).all() or not chi2_end[b] < chi2_start[b]:
+        fail(f"9b: map_fit chi2 {chi2_end} against the start's {chi2_start}")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -958,35 +1178,57 @@ def main() -> None:
     if not 0.0 <= acc <= 1.0:
         fail(f"accept rate {acc} outside [0, 1]")
 
-    # phase 7: the inversion run through the command line
-    run_launches = check_cli_run(torch, problem, m0, smi)
+    import shutil
+    import tempfile
 
-    # phase 8: the sharded sampler in spawned ranks
-    sharded_launches = check_sharded(torch, problem, m0, vg, opts, mass, m, m_ref, res,
-                                     hmc_s, smi)
+    run_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_run_"))
+    try:
+        # phase 7: the inversion run through the command line
+        run_launches = check_cli_run(torch, problem, m0, smi, run_dir)
+
+        # phase 8: the sharded sampler in spawned ranks
+        sharded_launches = check_sharded(torch, problem, m0, vg, opts, mass, m, m_ref,
+                                         res, hmc_s, smi)
+
+        # phase 9: one-mode surveys, then the checkpoint tools on phase 7's run
+        single_launches = check_single_mode(torch, m, m_ref, eval_ms, smi)
+        tool_launches = check_tools(torch, run_dir, smi, dev)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
 
     # phase 6
     replaces = {
         "schur_factor": "hmcmt2d_tpu/ops/pallas_factor.py:137",
+        "schur_factor_polish": "hmcmt2d_tpu/ops/pallas_factor.py:120",
         "bt_sweep_fwd": "hmcmt2d_tpu/ops/pallas_factor.py:357",
         "bt_sweep_bwd": "hmcmt2d_tpu/ops/pallas_factor.py:383",
     }
     source = {
         "schur_factor": "hmcmt2d_tpu_torch/csrc/schur_factor.cu",
+        "schur_factor_polish": "hmcmt2d_tpu_torch/csrc/schur_factor.cu",
         "bt_sweep_fwd": "hmcmt2d_tpu_torch/csrc/bt_sweep_fwd.cu",
         "bt_sweep_bwd": "hmcmt2d_tpu_torch/csrc/bt_sweep_bwd.cu",
     }
-    kernels = [{"name": k, "route": "cuda", "source": source[k],
-                "replaces": replaces[k], "launches": counts[k],
-                "max_abs_err": r["abs"], "max_rel_err": r["rel"],
-                "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "share_of_bound": r["share_of_bound"],
-                "library_ms": r["library_ms"],
-                "launches_cli_run": [c[k] for c in run_launches],
-                "launches_sharded_per_rank": {ph: [c[k] for c in counts_]
-                                              for ph, counts_ in sharded_launches.items()}}
-               for k, r in kres.items()]
+    kernels = []
+    for k, r in kres.items():
+        entry = {"name": k, "route": "cuda", "source": source[k], "replaces": replaces[k],
+                 "max_abs_err": r["abs"], "max_rel_err": r["rel"],
+                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "share_of_bound": r["share_of_bound"], "library_ms": r["library_ms"]}
+        if k == "schur_factor_polish":
+            # not on the main path (polish = 0 there): its launches are those
+            # of the phase-3 polished factor-solve, counted from 0
+            entry.update(launches=r["solve"]["launches_polish1"][k],
+                         launches_path="phase 3: polish = 1 factor-solve of the flagship")
+        else:
+            entry.update(launches=counts[k],
+                         launches_cli_run=[c[k] for c in run_launches],
+                         launches_sharded_per_rank={ph: [c[k] for c in counts_]
+                                                    for ph, counts_ in sharded_launches.items()},
+                         launches_single_mode={n: c[k] for n, c in single_launches.items()},
+                         launches_refresh_extend=tool_launches[k])
+        kernels.append(entry)
     say({"kernels": kernels})
     say(smi_line())
     say({"ok": True, "device": {"platform": "gpu", "kind": name,

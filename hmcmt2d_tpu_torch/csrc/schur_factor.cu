@@ -10,8 +10,13 @@
 // because the caller passes the equilibrated operator (real part positive
 // definite, so every Schur complement keeps a nonzero pivot).
 //
+// With polish > 0, each line's inverse then takes that many Newton-Schulz
+// steps G_j <- G_j + G_j (I - S_j G_j) before it feeds line j+1's downdate
+// (ops/fused_factor.py ns_polish).
+//
 // Replaces the Pallas TPU kernel _factor_kernel
-// (hmcmt2d_tpu/ops/pallas_factor.py:137-194).
+// (hmcmt2d_tpu/ops/pallas_factor.py:137-194), polish (_ns_polish, :120-134)
+// included.
 //
 // Bound: q pivot steps of q^2 complex multiply-adds per line (8 q^3 flops)
 // on the fp32 CUDA cores: 66 GFLOP at the flagship (q = 95, 55 lines, 176
@@ -47,6 +52,20 @@
 // one temporary for the update.  A block alone takes as long as one on
 // each SM.  The launch plan (ops/fused_factor.py schur_factor_plan) picks
 // the tile from q padded to 32, 64, 96 or 128.
+//
+// Polish (a template variant; polish = 0 runs the code above unchanged).
+// Bound: two more complex q^3 products a step, 24 q^3 flops a line at
+// polish = 1, so 3x the factor's.  The Gauss-Jordan overwrote S_j, so each
+// step first rebuilds S_j into a QP x QP buffer of shared memory, by the
+// operations that formed it in registers (T_j, and G_{j-1} read back from
+// G); then each thread forms its tile of R = I - S_j G_j in registers (rows
+// of S_j from shared memory, columns of G_j from the G it just stored, in
+// L1/L2), writes R over the buffer, and forms G_j + G_j R (rows of G_j from
+// G, columns of R from the buffer), which it stores again and keeps in
+// registers for the next downdate.  Padded rows and columns stay zero.  The
+// buffer takes 8 QP^2 bytes (74 KB at QP = 96, two blocks still fit an SM).
+// A simple design that is right first: the products are plain loops with
+// one operand broadcast, not tiled, and G_j is read from L2.
 
 #include <cuda_runtime.h>
 #include "cplx.cuh"
@@ -135,13 +154,118 @@ __device__ __forceinline__ float2 upd(float2 s, float2 a, float2 b) {
   return make_float2(s.x - t.x, s.y - t.y);
 }
 
-template <int RT, int CT, int MINB>
+// One Newton-Schulz step on line j: G_j <- G_j + G_j (I - S_j G_j), with
+// G_j stored in Gj (and in S, which it overwrites) and S_j rebuilt in Ssh
+// from the line's staged diag/offy/offz and G_{j-1} (Gprev, null at j = 0).
+// Ends with G_j + G_j R stored in Gj and held in S.
+template <int RT, int CT>
+__device__ __forceinline__ void ns_polish(float2 (&S)[RT][CT], float2* Ssh,
+                                          float2* Gj, const float2* Gprev,
+                                          const float2* dg, const float* oyv,
+                                          const float* ozv, int q, int lane,
+                                          int warp, int tid) {
+  constexpr int QP = RT * TY;
+  __syncthreads();   // G_j is stored; Ssh is free
+  for (int e = tid; e < QP * QP; e += THREADS) {
+    const int r = e / QP, c = e % QP;
+    float2 t = make_float2(0.f, 0.f);
+    if (r < q && c < q) {
+      if (r == c) t = dg[r];
+      else if (c == r + 1) t.x = -oyv[r];
+      else if (r == c + 1) t.x = -oyv[c];
+      if (Gprev != nullptr) {
+        const float s = ozv[r] * ozv[c];
+        const float2 g = Gprev[(size_t)r * q + c];
+        t.x -= __fmul_rn(s, g.x);
+        t.y -= __fmul_rn(s, g.y);
+      }
+    }
+    Ssh[e] = t;
+  }
+  __syncthreads();
+
+  // R = I - S_j G_j, accumulated in S
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) S[i][cc] = make_float2(0.f, 0.f);
+  for (int k = 0; k < q; ++k) {
+    float2 g[CT];
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) {
+      const int c = lane + TX * cc;
+      g[cc] = c < q ? Gj[(size_t)k * q + c] : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float2 a = Ssh[(warp + TY * i) * QP + k];
+#pragma unroll
+      for (int cc = 0; cc < CT; ++cc) S[i][cc] = cfma(a, g[cc], S[i][cc]);
+    }
+  }
+  __syncthreads();   // every read of S_j in Ssh is done
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = warp + TY * i;
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) {
+      const int c = lane + TX * cc;
+      float2 t = make_float2(0.f, 0.f);
+      if (r < q && c < q)
+        t = make_float2((r == c ? 1.f : 0.f) - S[i][cc].x, -S[i][cc].y);
+      Ssh[r * QP + c] = t;
+    }
+  }
+  __syncthreads();
+
+  // G_j + G_j R, accumulated in S
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) S[i][cc] = make_float2(0.f, 0.f);
+  for (int k = 0; k < q; ++k) {
+    float2 rk[CT];
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) rk[cc] = Ssh[k * QP + lane + TX * cc];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = warp + TY * i;
+      const float2 a = r < q ? Gj[(size_t)r * q + k] : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int cc = 0; cc < CT; ++cc) S[i][cc] = cfma(a, rk[cc], S[i][cc]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = warp + TY * i;
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) {
+      const int c = lane + TX * cc;
+      if (r < q && c < q) {
+        const float2 g = Gj[(size_t)r * q + c];
+        S[i][cc] = make_float2(g.x + S[i][cc].x, g.y + S[i][cc].y);
+      }
+    }
+  }
+  __syncthreads();   // every read of G_j is done before it is overwritten
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = warp + TY * i;
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) {
+      const int c = lane + TX * cc;
+      if (r < q && c < q) Gj[(size_t)r * q + c] = S[i][cc];
+    }
+  }
+}
+
+template <int RT, int CT, int MINB, bool POLISH>
 __global__ void __launch_bounds__(THREADS, MINB)
 schur_factor_kernel(const float2* __restrict__ diag,  // (B, nzi, q)
                     const float* __restrict__ offy,   // (B, nzi, q-1)
                     const float* __restrict__ offz,   // (B, nzi-1, q)
                     float2* __restrict__ G,           // (B, nzi, q, q)
-                    int nzi, int q) {
+                    int nzi, int q, int polish) {
   constexpr int QP = RT * TY;
   static_assert(QP == CT * TX, "the thread tile must cover a square");
   extern __shared__ float2 smem[];
@@ -150,6 +274,7 @@ schur_factor_kernel(const float2* __restrict__ diag,  // (B, nzi, q)
   float2* dg = smem + 4 * QP;      // [QP] diag of the line
   float* oyv = reinterpret_cast<float*>(smem + 5 * QP);  // [QP] offy of the line
   float* ozv = oyv + QP;           // [QP] offz between this line and the last
+  float2* Ssh = reinterpret_cast<float2*>(ozv + QP);  // [QP][QP] (POLISH only)
 
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int tid = warp * TX + lane;
@@ -230,35 +355,53 @@ schur_factor_kernel(const float2* __restrict__ diag,  // (B, nzi, q)
         if (r < q && c < q) Gj[(size_t)r * q + c] = S[i][cc];
       }
     }
+    if constexpr (POLISH) {
+      for (int p = 0; p < polish; ++p)
+        ns_polish(S, Ssh, Gj, j > 0 ? Gj - qq : nullptr, dg, oyv, ozv, q, lane,
+                  warp, tid);
+    }
   }
 }
 
 template <int RT, int CT, int MINB>
 int launch(const void* diag, const void* offy, const void* offz, void* G,
-           int B, int nzi, int q, int smem, cudaStream_t stream) {
-  schur_factor_kernel<RT, CT, MINB><<<B, dim3(TX, TY), smem, stream>>>(
+           int B, int nzi, int q, int smem, int polish, cudaStream_t stream) {
+  const dim3 block(TX, TY);
+  if (polish == 0) {
+    schur_factor_kernel<RT, CT, MINB, false><<<B, block, smem, stream>>>(
+        (const float2*)diag, (const float*)offy, (const float*)offz,
+        (float2*)G, nzi, q, 0);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      schur_factor_kernel<RT, CT, MINB, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  schur_factor_kernel<RT, CT, MINB, true><<<B, block, smem, stream>>>(
       (const float2*)diag, (const float*)offy, (const float*)offz, (float2*)G,
-      nzi, q);
+      nzi, q, polish);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // qp, threads and smem come from the launch plan (ops/fused_factor.py
-// schur_factor_plan); a plan this file does not compile is refused.
+// schur_factor_plan, whose shared memory grows by the S_j buffer when
+// polish > 0); a plan this file does not compile is refused.
 extern "C" int hmc_schur_factor(const void* diag, const void* offy,
                                 const void* offz, void* G, int B, int nzi,
                                 int q, int qp, int threads, int smem,
-                                void* stream) {
-  if (threads != THREADS || q < 1 || q > qp || smem != 48 * qp)
+                                int polish, void* stream) {
+  const int want = 48 * qp + (polish > 0 ? 8 * qp * qp : 0);
+  if (threads != THREADS || q < 1 || q > qp || polish < 0 || smem != want)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || nzi == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (qp) {
-    case 32: return launch<2, 1, 2>(diag, offy, offz, G, B, nzi, q, smem, s);
-    case 64: return launch<4, 2, 2>(diag, offy, offz, G, B, nzi, q, smem, s);
-    case 96: return launch<6, 3, 2>(diag, offy, offz, G, B, nzi, q, smem, s);
-    case 128: return launch<8, 4, 1>(diag, offy, offz, G, B, nzi, q, smem, s);
+    case 32: return launch<2, 1, 2>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
+    case 64: return launch<4, 2, 2>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
+    case 96: return launch<6, 3, 2>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
+    case 128: return launch<8, 4, 1>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

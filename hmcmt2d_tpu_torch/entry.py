@@ -19,11 +19,15 @@ from .models.posterior import InverseProblem, build_inverse_problem
 
 
 def flagship_problem(tiny: bool = False, device=None,
-                     cfg: SolveConfig | None = None) -> tuple[InverseProblem, np.ndarray]:
+                     cfg: SolveConfig | None = None, data_comp=("ZXY", "ZYX"),
+                     data_type: str = "Impedance") -> tuple[InverseProblem, np.ndarray]:
     """The flagship inverse problem on ``device`` (None: the GPU) and its
     start model (numpy log-sigma).  Observations are placeholders (ones,
     errors 0.01), as in `__graft_entry__._flagship_problem`; ``cfg`` defaults to
-    ``default_config(device)``."""
+    ``default_config(device)``.  ``data_comp`` and ``data_type`` change the
+    survey's components (every (freq, rx, comp) triple observed), for
+    example ``("ZXY", "TZY")`` or ``("RhoYX", "PhsYX")`` under "Rho_Phs" for
+    a one-mode survey."""
     dev = resolve_device(device)
     ny, nz_earth, n_rx, n_freq = (12, 8, 4, 4) if tiny else (96, 49, 41, 11)
 
@@ -46,14 +50,14 @@ def flagship_problem(tiny: bool = False, device=None,
     rx_y = np.linspace(-span / 2 + 400, span / 2 - 400, n_rx)
     rx_loc = np.stack([rx_y, np.zeros(n_rx)], axis=1)
     freqs = np.logspace(2, -2, n_freq)
-    f, r, d = np.meshgrid(np.arange(n_freq), np.arange(n_rx), np.arange(2),
-                          indexing="ij")
-    data = MTData(rx_loc=rx_loc, freqs=freqs, data_type="Impedance",
-                  data_comp=("ZXY", "ZYX"), freq_id=f.ravel(), rx_id=r.ravel(),
+    f, r, d = np.meshgrid(np.arange(n_freq), np.arange(n_rx),
+                          np.arange(len(data_comp)), indexing="ij")
+    data = MTData(rx_loc=rx_loc, freqs=freqs, data_type=data_type,
+                  data_comp=tuple(data_comp), freq_id=f.ravel(), rx_id=r.ravel(),
                   dt_id=d.ravel()).validate()
 
     cfg = cfg or default_config(dev)
-    obs = np.ones(data.n_data, complex)
+    obs = np.ones(data.n_data, complex if data.is_complex else float)
     err = np.full(data.n_data, 0.01)
     return build_inverse_problem(mesh, data, obs, err, sigma2d.ravel(),
                                  cfg=cfg, device=dev)

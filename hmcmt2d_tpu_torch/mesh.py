@@ -171,6 +171,13 @@ def interior(u: torch.Tensor) -> torch.Tensor:
     return u[..., 1:-1, 1:-1]
 
 
+def boundary_rhs(st: Stencil, omega, bc_full: torch.Tensor) -> torch.Tensor:
+    """Interior right-hand side ``-A_io bc`` (mt2DTE.jl:44): ``bc_full`` is
+    a full node grid with the Dirichlet values on its boundary ring and
+    zeros inside, so the interior rows of ``A bc_full`` are ``A_io bc``."""
+    return -interior(apply_A(st, omega, bc_full))
+
+
 def cell_gradient_sqnorm(v2d: torch.Tensor) -> torch.Tensor:
     """``v' Gc' Gc v`` for the unscaled cell-gradient smoothness operator
     (plain first differences between adjacent cells in y and z)."""

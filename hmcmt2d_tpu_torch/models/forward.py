@@ -11,8 +11,10 @@ MT2DFwdSolver.jl, mt2DTE.jl, mt2DTM.jl):
   the JAX package;
 * receiver fields and responses are plain differentiable tensor code.
 
-TE and TM are solved as one merged batch of (chains x frequency x mode)
-systems.  Everything is differentiable with respect to ``sigma2d``.
+A survey with both modes solves TE and TM as one merged batch of (chains x
+frequency x mode) systems; a TE-only or TM-only survey solves its own mode
+alone.  Everything is differentiable with respect to ``sigma2d``, in
+reverse mode and, through the solve's ``jvp``, in forward mode.
 """
 
 from __future__ import annotations
@@ -144,6 +146,20 @@ def boundary_grids_both(mesh: M.TensorMesh2D, sigma2d: torch.Tensor,
                         _bc_from_profile_field(mesh, h, dtype)], dim=-3)
 
 
+def boundary_grid(mesh: M.TensorMesh2D, sigma2d: torch.Tensor,
+                  omegas: torch.Tensor, mode: str, dtype: torch.dtype) -> torch.Tensor:
+    """One mode's Dirichlet grid (nfreq, ..., nz+1, ny+1): TE takes E, TM
+    takes H from the 1-D propagation (getBoundaryMT2DTE/TM)."""
+    profiles = boundary_profiles(mesh, sigma2d)
+    om = omegas.reshape((-1,) + (1,) * profiles.ndim)
+    if mode == "TE":
+        f = mt1d.analytic_field(om, profiles[None], mesh.z_len, dtype=dtype)
+    else:
+        _, f = mt1d.analytic_field(om, profiles[None], mesh.z_len, with_h=True,
+                                   dtype=dtype)
+    return _bc_from_profile_field(mesh, f, dtype)
+
+
 def _cast_stencil(st: M.Stencil, rdt: torch.dtype) -> M.Stencil:
     return M.Stencil(st.cy.to(rdt), st.cz.to(rdt), st.m.to(rdt))
 
@@ -156,32 +172,30 @@ def _solve(sys: S.InteriorSystem, fac: S.Factorization, b: torch.Tensor,
 
 
 class _DirichletSolve(torch.autograd.Function):
-    """x = A^-1 rhs for the interior system A = (diag, offy, offz).
-
-    Forward: factorise the (detached) system once and solve, refined; or,
-    given a stale factor ``fac``, solve with it and ``stale_refine_iters``
+    """x = A^-1 rhs for the interior system A = (diag, offy, offz), given its
+    factor ``fac`` (fresh, or stale from a nearby model) and ``iters``
     refinement steps against the current operator.
+
     Backward: A is complex-symmetric, so under torch's conjugate-Wirtinger
     convention the adjoint is lambda = conj(solve(conj(g))) on the same
     factor; rhs receives lambda and the coefficients receive -lambda pulled
     back through ``apply_interior(., x)`` (the implicit-function form that
-    ``lax.custom_linear_solve`` uses).  The factor kernels have no
-    derivative and need none.
+    ``lax.custom_linear_solve`` uses).  Forward mode (``jvp``, for
+    ``torch.func.jvp``): dx = A^-1 (d rhs - dA x), one more solve on the
+    same factor, dA x being ``apply_interior`` of the tangent coefficients.
+    The factor kernels have no derivative and need none.
     """
 
     @staticmethod
-    def forward(ctx, diag, offy, offz, rhs, cfg: SolveConfig,
-                fac: S.Factorization | None = None):
-        sys = S.InteriorSystem(diag, offy, offz)
-        if fac is None:
-            fac = S.factorize(sys, dtype=cfg.solve_dtype, method=cfg.solver_method)
-            iters = cfg.refine_iters
-        else:
-            iters = cfg.stale_refine_iters
-        x = _solve(sys, fac, rhs, iters)
+    def forward(diag, offy, offz, rhs, fac: S.Factorization, iters: int):
+        return _solve(S.InteriorSystem(diag, offy, offz), fac, rhs, iters)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        diag, offy, offz, _, fac, iters = inputs
         ctx.fac, ctx.iters = fac, iters
-        ctx.save_for_backward(diag, offy, offz, x)
-        return x
+        ctx.save_for_backward(diag, offy, offz, output)
+        ctx.save_for_forward(diag, offy, offz, output)
 
     @staticmethod
     def backward(ctx, gx):
@@ -200,6 +214,17 @@ class _DirichletSolve(torch.autograd.Function):
             grads = [next(got) if n else None for n in need]
         return (*grads, lam if ctx.needs_input_grad[3] else None, None, None)
 
+    @staticmethod
+    def jvp(ctx, d_diag, d_offy, d_offz, d_rhs, _d_fac, _d_iters):
+        diag, offy, offz, x = ctx.saved_tensors
+        dA = S.InteriorSystem(*(torch.zeros_like(t) if d is None else d
+                                for t, d in ((diag, d_diag), (offy, d_offy),
+                                             (offz, d_offz))))
+        r = -S.apply_interior(dA, x)
+        if d_rhs is not None:
+            r = r + d_rhs
+        return _solve(S.InteriorSystem(diag, offy, offz), ctx.fac, r, ctx.iters)
+
 
 def solve_dirichlet(st: M.Stencil, omegas: torch.Tensor, bc: torch.Tensor,
                     cfg: SolveConfig, fac: S.Factorization | None = None) -> torch.Tensor:
@@ -211,19 +236,33 @@ def solve_dirichlet(st: M.Stencil, omegas: torch.Tensor, bc: torch.Tensor,
     ``fac`` (optional, from :meth:`ForwardOperator.factor_at`) is a
     factorisation built at a nearby model, the trajectory-amortised path:
     the solve refines against the current operator instead of factorising
-    afresh, and the adjoint solve uses the same factor.  Where its batch is
-    1 and ``bc``'s is wider, those right-hand sides share it."""
+    afresh (:func:`interior_solve`), and the adjoint solve uses the same
+    factor.  Where its batch is 1 and ``bc``'s is wider, those right-hand
+    sides share it."""
     rdt = cfg.real_dtype
     st_c = _cast_stencil(st, rdt)
     n_extra = bc.ndim - 3
     om = omegas.to(rdt).reshape(omegas.shape[:1] + (1,) * (n_extra + 2))
     bc = bc.to(cfg.solve_dtype)
     sys = S.interior_system(st_c, om, dtype=cfg.solve_dtype)
-    # rhs = -A_io bc: the interior of bc is zero, so the interior rows of
-    # A @ bc are exactly A_io @ bc_boundary
-    rhs = -M.interior(M.apply_A(st_c, om, bc))
-    x = _DirichletSolve.apply(sys.diag, sys.offy, sys.offz, rhs, cfg, fac)
-    return bc + M.embed_interior(x)
+    rhs = M.boundary_rhs(st_c, om, bc)
+    return bc + M.embed_interior(interior_solve(*sys, rhs, cfg, fac))
+
+
+def interior_solve(diag, offy, offz, rhs, cfg: SolveConfig,
+                   fac: S.Factorization | None = None) -> torch.Tensor:
+    """x = A^-1 rhs for the interior system (diag, offy, offz), differentiable
+    in both modes (:class:`_DirichletSolve`): without ``fac`` the detached
+    system is factorised here and the solve refines ``cfg.refine_iters``
+    times; with a stale ``fac``, ``cfg.stale_refine_iters`` times."""
+    if fac is None:
+        with torch.no_grad():
+            fac = S.factorize(S.InteriorSystem(diag.detach(), offy.detach(), offz.detach()),
+                              dtype=cfg.solve_dtype, method=cfg.solver_method)
+        iters = cfg.refine_iters
+    else:
+        iters = cfg.stale_refine_iters
+    return _DirichletSolve.apply(diag, offy, offz, rhs, fac, iters)
 
 
 def _pair_mean(x, w):
@@ -319,8 +358,11 @@ def impedance_to_rho_phase(omegas, Z):
 class ForwardOperator:
     """Mesh + survey -> differentiable ``predict(sigma2d)``.
 
-    Both modes are solved as one merged batch of (chains x frequency x mode)
-    systems whatever components the survey holds.
+    A survey with TE and TM components solves both modes as one merged batch
+    of (chains x frequency x mode) systems; a TE-only or TM-only survey
+    solves its own mode alone, chains x frequency systems, as the JAX
+    package does.  The one-mode path takes no stale factor: like JAX's, it
+    ignores ``fac`` and factorises afresh (:meth:`response_cube`).
     """
 
     mesh: M.TensorMesh2D
@@ -333,6 +375,31 @@ class ForwardOperator:
         freqs = self.data.freqs if freqs is None else freqs
         return 2.0 * np.pi * torch.as_tensor(freqs, dtype=sigma2d.dtype,
                                              device=sigma2d.device)
+
+    def mode_solution(self, sigma2d: torch.Tensor, mode: str,
+                      freqs=None) -> torch.Tensor:
+        """Full node fields (nfreq, ..., nz+1, ny+1) of one mode, ``"TE"`` or
+        ``"TM"``, from its own factor and solve; ``freqs`` as in
+        :meth:`factor_at`."""
+        omegas = self._omegas(sigma2d, freqs)
+        st = (M.te_stencil if mode == "TE" else M.tm_stencil)(self.mesh, sigma2d)
+        bc = boundary_grid(self.mesh, sigma2d, omegas, mode, self.cfg.solve_dtype)
+        return solve_dirichlet(st, omegas, bc, self.cfg)
+
+    def mode_rx_fields(self, sigma2d: torch.Tensor, mode: str, freqs=None):
+        """(E, H, fields) of one mode: the surface fields at the receivers
+        (Ex, Hy for TE; Ey, Hx for TM) and the node fields."""
+        omegas = self._omegas(sigma2d, freqs)
+        fields = self.mode_solution(sigma2d, mode, freqs)
+        rx_fields = rx_fields_te if mode == "TE" else rx_fields_tm
+        E, H = rx_fields(omegas, self.mesh, sigma2d, fields, self.rx)
+        return E, H, fields
+
+    def mode_impedance(self, sigma2d: torch.Tensor, mode: str,
+                       freqs=None) -> torch.Tensor:
+        """Impedance Zxy (TE) or Zyx (TM), (nfreq, ..., nrx)."""
+        E, H, _ = self.mode_rx_fields(sigma2d, mode, freqs)
+        return E / H
 
     def merged_stencil(self, sigma2d: torch.Tensor) -> M.Stencil:
         """TE and TM stencils stacked on a mode axis just before the grid
@@ -349,7 +416,9 @@ class ForwardOperator:
         :meth:`response_cube` and :meth:`predict` take as ``fac``.  Not
         differentiated (it only ever preconditions the solve).  ``freqs``
         (default: the survey's) selects the frequencies, as the
-        frequency-sharded path does for its own share."""
+        frequency-sharded path does for its own share.  It covers both
+        modes whatever the survey holds, as in the JAX package; a one-mode
+        survey's :meth:`response_cube` does not use it."""
         omegas = self._omegas(sigma2d, freqs)
         st = self.merged_stencil(sigma2d)
         rdt = self.cfg.real_dtype
@@ -375,17 +444,31 @@ class ForwardOperator:
                       fac: S.Factorization | None = None) -> torch.Tensor:
         """(..., nfreq, nrx, ncomp) responses in ``data_comp`` order, with the
         leading chain axes of ``sigma2d``; ``freqs`` as in :meth:`factor_at`
-        (then nfreq is ``len(freqs)``)."""
+        (then nfreq is ``len(freqs)``).  Both modes: one merged solve, with
+        ``fac`` if given.  One mode: that mode's own solve, which ignores
+        ``fac`` (hmcmt2d_tpu/models/forward.py:477-487); the TE branch
+        takes the tipper from the TE fields."""
         omegas = self._omegas(sigma2d, freqs)
-        fields_te, fields_tm = self.both_mode_solutions(sigma2d, freqs, fac)
-        E, H = rx_fields_te(omegas, self.mesh, sigma2d, fields_te, self.rx)
-        Ey, Hx = rx_fields_tm(omegas, self.mesh, sigma2d, fields_tm, self.rx)
-        Z = {"XY": E / H, "YX": Ey / Hx}
+        data = self.data
+        Z, T = {}, None
+        want_tipper = "TZY" in data.data_comp
+        if data.comp_te and data.comp_tm:
+            fields_te, fields_tm = self.both_mode_solutions(sigma2d, freqs, fac)
+            E, H = rx_fields_te(omegas, self.mesh, sigma2d, fields_te, self.rx)
+            Ey, Hx = rx_fields_tm(omegas, self.mesh, sigma2d, fields_tm, self.rx)
+            Z["XY"], Z["YX"] = E / H, Ey / Hx
+        elif data.comp_te:
+            E, H, fields_te = self.mode_rx_fields(sigma2d, "TE", freqs)
+            Z["XY"] = E / H
+        else:
+            Z["YX"] = self.mode_impedance(sigma2d, "TM", freqs)
+        if want_tipper:
+            T = rx_hz_te(omegas, self.mesh, fields_te, self.rx) / H
         comps = []
-        for name in self.data.data_comp:
+        for name in data.data_comp:
             pol = "XY" if name.endswith("XY") else "YX"
             if name == "TZY":
-                comps.append(rx_hz_te(omegas, self.mesh, fields_te, self.rx) / H)
+                comps.append(T)
             elif name.startswith("Z"):
                 comps.append(Z[pol])
             elif name.startswith("log10Rho"):

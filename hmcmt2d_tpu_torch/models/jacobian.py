@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``hmcmt2d_tpu/models/jacobian.py`` (the reference's
 compJacTMatVec / compJacMat): autograd through the differentiable forward
-model.  Complex data are stacked as real parts then imaginary parts, the
+model, reverse mode for ``jtv`` and the Jacobians, forward mode for
+``jv``.  Complex data are stacked as real parts then imaginary parts, the
 reference's real view of the misfit: J is (2 ndata, n_param) for impedance
 data and (ndata, n_param) for rho/phase data.
 
@@ -31,6 +32,15 @@ def real_predict(problem, m: torch.Tensor, fac=None) -> torch.Tensor:
     """Predicted data as a real vector (re parts then im parts), batched
     over m's leading axes."""
     return _real_stack(problem.predict(m, fac=fac))
+
+
+def jv(problem, m: torch.Tensor, v: torch.Tensor, fac=None) -> torch.Tensor:
+    """J @ v: the directional derivative of :func:`real_predict` at m along
+    v, in forward mode (``torch.func.jvp``; one extra solve per (freq, mode)
+    on the forward solve's factor, the solve's ``jvp``)."""
+    _, out = torch.func.jvp(lambda mm: real_predict(problem, mm, fac),
+                            (m.detach(),), (v.to(m.dtype),))
+    return out
 
 
 def jtv(problem, m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

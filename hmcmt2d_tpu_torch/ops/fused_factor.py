@@ -12,13 +12,13 @@ Hopper (sources in ``hmcmt2d_tpu_torch/csrc``, built by
   kernel for a CUDA tensor, or raises: it never falls back;
 * a launch counter, ``<wrapper>.launches``, raised by one at each launch.
 
-=================  ==========================================  ============
-kernel (csrc)      replaces (hmcmt2d_tpu/ops/pallas_factor.py)  bound
-=================  ==========================================  ============
-schur_factor       ``_factor_kernel`` :137-194                  operations
-bt_sweep_fwd       ``_sweep_fwd_kernel`` :357-380               bytes
-bt_sweep_bwd       ``_sweep_bwd_kernel`` :383-408               bytes
-=================  ==========================================  ============
+=================  ==============================================  ==========
+kernel (csrc)      replaces (hmcmt2d_tpu/ops/pallas_factor.py)      bound
+=================  ==============================================  ==========
+schur_factor       ``_factor_kernel`` :137-194, polish :113-134     operations
+bt_sweep_fwd       ``_sweep_fwd_kernel`` :357-380                   bytes
+bt_sweep_bwd       ``_sweep_bwd_kernel`` :383-408                   bytes
+=================  ==============================================  ==========
 
 The TPU layout (split real/imaginary planes, q padded to 128, q-tight
 rows) existed because Pallas on a TPU has no complex type and tiles by
@@ -110,16 +110,19 @@ def _padded(q: int) -> int:
     return -(-q // 32) * 32
 
 
-def schur_factor_plan(q: int) -> LaunchPlan:
+def schur_factor_plan(q: int, polish: int = 0) -> LaunchPlan:
     """Plan of ``csrc/schur_factor.cu``: S in registers, row r on warp
     r % 16 and column c on lane c % 32, so a thread holds a (qp/16, qp/32)
     complex tile.  Shared memory holds the double-buffered pivot row and
     column (4 qp complex) and the staged line: diag (qp complex), offy and
-    offz (qp floats each).  Two blocks per SM up to qp = 96 (at most 64
-    registers a thread), one at qp = 128 (a 64-register tile).  The C entry
-    point refuses another plan."""
+    offz (qp floats each); with ``polish`` > 0 also the qp x qp complex
+    buffer of S_j that the Newton-Schulz steps read.  Two blocks per SM up
+    to qp = 96 (at most 64 registers a thread), one at qp = 128 (a
+    64-register tile).  The C entry point refuses another plan."""
     qp = _padded(q)
     smem = 5 * qp * COMPLEX_BYTES + 2 * qp * 4
+    if polish > 0:
+        smem += qp * qp * COMPLEX_BYTES
     return LaunchPlan(q, qp, (LANES, WARPS), (qp // WARPS, qp // LANES),
                       smem, 0, 2 if qp <= 96 else 1)
 
@@ -182,28 +185,45 @@ def _dense_line(d: torch.Tensor, oy: torch.Tensor) -> torch.Tensor:
     return T + torch.diag_embed(ocx, 1) + torch.diag_embed(ocx, -1)
 
 
+def ns_polish(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """One Newton-Schulz step G + G (I - S G) on (..., q, q): contracts the
+    inversion residual I - S G quadratically (``_ns_polish``,
+    hmcmt2d_tpu/ops/pallas_factor.py:120-134)."""
+    eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+    return G + G @ (eye - S @ G)
+
+
 def schur_factor_plain(diag: torch.Tensor, offy: torch.Tensor,
-                       offz: torch.Tensor) -> torch.Tensor:
+                       offz: torch.Tensor, polish: int = 0) -> torch.Tensor:
     """Plain version of ``schur_factor``: G (B, nzi, q, q) from diag (B, nzi,
-    q) complex, offy (B, nzi, q-1) and offz (B, nzi-1, q) real."""
+    q) complex, offy (B, nzi, q-1) and offz (B, nzi-1, q) real; ``polish``
+    Newton-Schulz steps on each line's inverse before it feeds the next
+    line's downdate."""
     Gs = []
     for j in range(diag.shape[1]):
         S = _dense_line(diag[:, j], offy[:, j])
         if j > 0:
             c = offz[:, j - 1]
             S = S - (c[:, :, None] * c[:, None, :]) * Gs[-1]
-        Gs.append(gj_inverse_nopivot(S))
+        G = gj_inverse_nopivot(S)
+        for _ in range(polish):
+            G = ns_polish(S, G)
+        Gs.append(G)
     return torch.stack(Gs, dim=1)
 
 
 def schur_factor(diag: torch.Tensor, offy: torch.Tensor,
-                 offz: torch.Tensor) -> torch.Tensor:
+                 offz: torch.Tensor, polish: int = 0) -> torch.Tensor:
     """Schur-chain factor: CUDA kernel for CUDA tensors (complex64 diag,
-    float32 couplings, contiguous), plain version for CPU tensors."""
+    float32 couplings, contiguous), plain version for CPU tensors; with
+    ``polish`` Newton-Schulz steps a line (the kernel's polish variant,
+    counted in ``schur_factor.polish_launches``)."""
+    if polish < 0:
+        raise ValueError(f"polish must be >= 0, got {polish}")
     if _on_cpu(diag):
-        return schur_factor_plain(diag, offy, offz)
+        return schur_factor_plain(diag, offy, offz, polish)
     B, nzi, q = diag.shape
-    plan = schur_factor_plan(q)
+    plan = schur_factor_plan(q, polish)
     lib = kernel_build.library()
     dev = diag.device
     _check(diag, "diag", torch.complex64, (B, nzi, q), dev)
@@ -213,13 +233,17 @@ def schur_factor(diag: torch.Tensor, offy: torch.Tensor,
     err = lib.hmc_schur_factor(diag.data_ptr(), offy.data_ptr(),
                                offz.data_ptr(), G.data_ptr(), B, nzi, q,
                                plan.qp, plan.n_threads, plan.smem_bytes,
-                               _stream())
+                               polish, _stream())
     _raise_on(err, "schur_factor")
-    schur_factor.launches += 1
+    if polish:
+        schur_factor.polish_launches += 1
+    else:
+        schur_factor.launches += 1
     return G
 
 
 schur_factor.launches = 0
+schur_factor.polish_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -299,10 +323,16 @@ KERNELS = (schur_factor, bt_sweep_fwd, bt_sweep_bwd)
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    schur_factor.polish_launches = 0
 
 
 def launches() -> dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    """Launches of each kernel since the last :func:`reset_launches`; the
+    factor's polish variant counts apart (``schur_factor_polish``)."""
+    out = {k.__name__: k.launches for k in KERNELS}
+    if schur_factor.polish_launches:
+        out["schur_factor_polish"] = schur_factor.polish_launches
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -335,14 +365,15 @@ def flatten_system(diag: torch.Tensor, offy: torch.Tensor, offz: torch.Tensor):
 
 
 def fused_schur_factor(diag: torch.Tensor, offy: torch.Tensor,
-                       offz: torch.Tensor) -> FusedFactor:
+                       offz: torch.Tensor, polish: int = 0) -> FusedFactor:
     """Factorise an (equilibrated) interior system with leading batch axes
-    that broadcast together; complex64 factors, float32 couplings."""
+    that broadcast together; complex64 factors, float32 couplings;
+    ``polish`` Newton-Schulz steps a line (0 on the main path)."""
     q = diag.shape[-1]
     if q > Q_MAX:
         raise ValueError(f"fused factor supports q <= {Q_MAX}, got {q}")
     d, oy, oz, batch = flatten_system(diag, offy, offz)
-    return FusedFactor(schur_factor(d, oy, oz), oz, batch)
+    return FusedFactor(schur_factor(d, oy, oz, polish), oz, batch)
 
 
 def fused_bt_solve(fac: FusedFactor, b: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # name -> argument count of the C entry points; every pointer and the stream
 # are c_void_p, the sizes c_int; each returns cudaGetLastError() as an int
 _ENTRY_POINTS = {
-    "hmc_schur_factor": (4, 6),   # B, nzi, q; plan: qp, threads, smem
+    "hmc_schur_factor": (4, 7),   # B, nzi, q; plan: qp, threads, smem; polish
     "hmc_bt_sweep_fwd": (4, 7),   # B, nzi, q; plan: qp, ring, threads, smem
     "hmc_bt_sweep_bwd": (4, 7),   # B, nzi, q; plan: qp, ring, threads, smem
 }

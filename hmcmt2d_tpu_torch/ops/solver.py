@@ -155,6 +155,15 @@ def equilibrate(sys: InteriorSystem) -> tuple[InteriorSystem, torch.Tensor]:
     return InteriorSystem(diag, sys.offy * sy, sys.offz * sz), s
 
 
+def direct_solve(sys: InteriorSystem, b: torch.Tensor, dtype=None) -> torch.Tensor:
+    """One-shot equilibrated thomas factor and solve (no reuse); b is
+    (..., nzi, nyi); ``dtype`` casts the scaled diagonal."""
+    ssys, s = equilibrate(sys)
+    if dtype is not None:
+        ssys = InteriorSystem(ssys.diag.to(dtype), ssys.offy, ssys.offz)
+    return s * bt_solve(bt_factor(ssys), s * b)
+
+
 class Factorization(NamedTuple):
     """Equilibrated factorisation reusable across solves: ``fac`` is a
     :class:`BTFactor` (thomas) or a :class:`FusedFactor` (fused kernels)."""

@@ -136,10 +136,12 @@ def warmup_carry_init(potential_vg, opts: HMCOptions, m0, m_ref) -> WarmupCarry:
     return carry_from_state(sample_chain_init(potential_vg, m0, m_ref), opts.dt)
 
 
-def warmup_keys(seed: int, it_offset: int, n: int, device) -> list[torch.Generator]:
-    """Generators of warmup iterations [it_offset, it_offset + n), a pure
-    function of the global iteration index (segmentation-invariant)."""
-    return [generator(seed, STREAM_WARMUP, it_offset + i, device) for i in range(n)]
+def warmup_keys(seed: int, it_offset: int, n: int, device,
+                stream: int = STREAM_WARMUP) -> list[torch.Generator]:
+    """Generators of warmup iterations [it_offset, it_offset + n) of
+    ``stream``, a pure function of the global iteration index
+    (segmentation-invariant)."""
+    return [generator(seed, stream, it_offset + i, device) for i in range(n)]
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:

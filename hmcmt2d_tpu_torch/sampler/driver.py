@@ -187,10 +187,11 @@ def _segment_plan(n_main: int, every: int) -> list[int]:
 
 def warmup_segments(eng, opts: H.HMCOptions, m_ref, carry: A.WarmupCarry, seed: int,
                     it_offset: int, ends, w: A.WarmupOptions, seg: int,
-                    fixed_mass: H.MassMatrix | None = None, on_segment=None):
+                    fixed_mass: H.MassMatrix | None = None, on_segment=None,
+                    stream: int = H.STREAM_WARMUP):
     """The warmup iterations ``it_offset + [0, len(ends))`` through
     ``eng.warmup_scan`` (a :class:`BatchedSampler` or a ShardedSampler) in
-    segments of ``seg`` (0: one), each drawing from the warmup stream at its
+    segments of ``seg`` (0: one), each drawing from ``stream`` at its
     global iteration index, so any segmentation gives the same carry.
     ``on_segment(done, n, carry, outs, seconds)`` follows each segment;
     returns the advanced carry."""
@@ -198,7 +199,8 @@ def warmup_segments(eng, opts: H.HMCOptions, m_ref, carry: A.WarmupCarry, seed: 
     for n in _segment_plan(len(ends), seg):
         t_seg = time.time()
         carry, outs = eng.warmup_scan(
-            opts, m_ref, carry, A.warmup_keys(seed, it_offset + done, n, m_ref.device),
+            opts, m_ref, carry,
+            A.warmup_keys(seed, it_offset + done, n, m_ref.device, stream),
             ends[done:done + n], w, fixed_mass=fixed_mass)
         done += n
         if on_segment is not None:

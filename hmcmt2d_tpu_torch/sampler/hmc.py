@@ -232,6 +232,10 @@ STREAM_WARMUP = 2        # warmup iteration, global warmup index (it runs on
                          # through the dense-mass re-adaptation)
 STREAM_WARMUP_ROW = 3    # warmup's start-row momentum (index 0)
 STREAM_START_MODEL = 4   # random_homogeneous_start (index 0)
+STREAM_REFRESH_WARMUP = 5   # tools.refresh_extend: step-size re-adaptation
+                            # (JAX's fold_in(key, 777))
+STREAM_REFRESH_MAIN = 6     # tools.refresh_extend: extension samples
+                            # (JAX's fold_in(key, 778))
 
 
 def generator(seed: int, stream: int, index: int, device) -> torch.Generator:
@@ -252,7 +256,7 @@ def run_hmc(potential_vg: Callable, opts: HMCOptions, mass: MassMatrix,
             sample_dtype=torch.float32, init_state: ChainState | None = None,
             key_offset: int = 0, factor_fn: Callable | None = None,
             rows: tuple[int, int] | None = None,
-            n_global: int | None = None) -> HMCResult:
+            n_global: int | None = None, stream: int = STREAM_MAIN) -> HMCResult:
     """Run ``n_samples`` HMC iterations for a batch of chains.
 
     ``potential_vg(m (C, P), m_ref) -> ((U, (misfit, mnorm, pred)), grad)``
@@ -260,7 +264,8 @@ def run_hmc(potential_vg: Callable, opts: HMCOptions, mass: MassMatrix,
     evaluation at ``m0``; ``key_offset`` is the number of samples already
     drawn, so segmented runs reproduce an unbroken one exactly.
     ``factor_fn`` as in :func:`_leapfrog`; ``rows`` and ``n_global`` as in
-    :func:`make_sample_step`.
+    :func:`make_sample_step`; iteration i draws from ``generator(seed,
+    stream, key_offset + i)``.
     """
     if n_samples < 1:
         raise ValueError("run_hmc needs n_samples >= 1")
@@ -280,7 +285,7 @@ def run_hmc(potential_vg: Callable, opts: HMCOptions, mass: MassMatrix,
     models, stats, accepts, preds, lf = [], [], [], [], []
     for i in range(n_samples):
         state, accept, st, _alpha, L = step(
-            state, generator(seed, STREAM_MAIN, key_offset + i, dev), m_ref,
+            state, generator(seed, stream, key_offset + i, dev), m_ref,
             opts.dt, mass)
         models.append(state.m.to(sample_dtype))
         stats.append(st)

@@ -1,8 +1,9 @@
 """Model parameterisation: log-conductivity transform and active cells.
 
 PyTorch counterpart of ``hmcmt2d_tpu/utils/transforms.py`` (the reference's
-HMCUtility layer, modelTransform and setActiveElement).  Autograd supplies
-the transform's Jacobian.
+HMCUtility layer: modelTransform, the bounded sigmoid of Kim & Kim 2011 and
+its inverse, and setActiveElement).  Autograd supplies the transforms'
+Jacobians.
 """
 
 from __future__ import annotations
@@ -14,6 +15,19 @@ import torch
 def model_transform(m: torch.Tensor) -> torch.Tensor:
     """log-conductivity -> linear conductivity."""
     return torch.exp(m)
+
+
+def model_transform_bounded(m: torch.Tensor, sig_lb, sig_ub,
+                            cp: float = 2.0) -> torch.Tensor:
+    """Bounded sigmoid sigma = (a + b exp(cp m)) / (1 + exp(cp m))
+    (HMCUtility.jl:114-138)."""
+    e = torch.exp(cp * m)
+    return (sig_lb + sig_ub * e) / (1.0 + e)
+
+
+def bounded_model(sigma: torch.Tensor, sig_lb, sig_ub, cp: float = 2.0) -> torch.Tensor:
+    """Inverse of :func:`model_transform_bounded` (HMCUtility.jl:150-158)."""
+    return torch.log((sigma - sig_lb) / (sig_ub - sigma)) / cp
 
 
 def active_cells(sigma_flat: np.ndarray, sigma_fixed, fix_index=None):

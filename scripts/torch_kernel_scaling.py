@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Batch scaling of the port's redesigned kernels on one CUDA GPU.
 
-Times ``schur_factor``, ``bt_sweep_fwd`` and ``bt_sweep_bwd`` (the CUDA
-kernels of ``hmcmt2d_tpu_torch/ops/fused_factor.py``) at the flagship line
-shape (nzi = 55 z-lines of q = 95 nodes) for B = 1, 44, 132 and 176
+Times ``schur_factor`` (and its Newton-Schulz variant, ``polish=1``),
+``bt_sweep_fwd`` and ``bt_sweep_bwd`` (the CUDA kernels of
+``hmcmt2d_tpu_torch/ops/fused_factor.py``) at the flagship line shape (nzi = 55 z-lines of q = 95 nodes) for B = 1, 44, 132 and 176
 systems: one block alone, one block per SM, and the flagship's 176 systems
 on 132 SMs.  Then it prints what ``nvcc -Xptxas -v`` reports for each kernel
-(registers, spills).  Run from the root of a checkout:
+(registers, spills; one "Compiling" line per template instance, the
+polish variants among them).  Run from the root of a checkout:
 
     python3 scripts/torch_kernel_scaling.py
 
@@ -92,6 +93,8 @@ def main() -> None:
         print(json.dumps({
             "systems": n, "nzi": NZI, "q": Q,
             "schur_factor_ms": time_ms(lambda: FF.schur_factor(d[:n], oy[:n], oz[:n])),
+            "schur_factor_polish_ms": time_ms(
+                lambda: FF.schur_factor(d[:n], oy[:n], oz[:n], polish=1), reps=5),
             "bt_sweep_fwd_ms": time_ms(lambda: FF.bt_sweep_fwd(G[:n], oz[:n], y[:n])),
             "bt_sweep_bwd_ms": time_ms(lambda: FF.bt_sweep_bwd(G[:n], oz[:n], y[:n])),
         }), flush=True)

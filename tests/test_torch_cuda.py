@@ -65,6 +65,42 @@ def test_kernels_match_plain(cuda_device, B, nzi, q, seed):
     assert relerr(x, FF.bt_sweep_bwd_plain(G, oz, y)) < SWEEP_TOL
 
 
+@pytest.mark.parametrize("q", [31, 64, 95, 128])
+def test_polished_factor_matches_plain(cuda_device, q):
+    """The factor's Newton-Schulz variant (polish = 1) against its plain
+    version, relative to max |G| (the products sum in another order); the
+    polish = 0 launch beside it holds its own plain version as before."""
+    d, oy, oz, _ = (t.to(cuda_device) for t in _system(3, 4, q, 20 + q))
+    FF.reset_launches()
+    G1 = FF.schur_factor(d, oy, oz, polish=1)
+    G0 = FF.schur_factor(d, oy, oz)
+    assert FF.launches() == {"schur_factor": 1, "schur_factor_polish": 1,
+                             "bt_sweep_fwd": 0, "bt_sweep_bwd": 0}
+    assert bool(torch.isfinite(torch.view_as_real(G1)).all())
+    assert relerr(G1, FF.schur_factor_plain(d, oy, oz, polish=1)) < 1e-5
+    assert relerr(G0, FF.schur_factor_plain(d, oy, oz)) < FACTOR_TOL
+
+
+def test_single_mode_fused_eval_launches(cuda_device):
+    """A TE-only survey (Z_XY and the tipper) solves its own mode alone: one
+    fused gradient eval launches the factor once and each sweep 14 times,
+    and agrees with the plain versions on the CPU."""
+    cfg = SolveConfig(torch.complex64, 6, "fused")
+    kw = dict(tiny=True, cfg=cfg, data_comp=("ZXY", "TZY"),
+              data_type="Impedance_Tipper")
+    gpu, m0 = entry.flagship_problem(device=cuda_device, **kw)
+    cpu, _ = entry.flagship_problem(device="cpu", **kw)
+    m = torch.as_tensor(m0 + 0.1 * np.random.default_rng(1).standard_normal((2, len(m0))),
+                        dtype=torch.float32)
+    FF.reset_launches()
+    (U, _), g = make_potential_vg(gpu, 1.0)(m.to(cuda_device), m.to(cuda_device))
+    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+    (Uc, _), gc = make_potential_vg(cpu, 1.0)(m, m)
+    assert relerr(U.cpu(), Uc) < 1e-4
+    g, gc = g.cpu().double(), gc.double()
+    assert float(((g * gc).sum(-1) / (g.norm(dim=-1) * gc.norm(dim=-1))).min()) > 0.9999
+
+
 def test_launch_checks(cuda_device):
     d, oy, oz, b = (t.to(cuda_device) for t in _system(2, 3, 8, 1))
     with pytest.raises(ValueError):

@@ -43,11 +43,11 @@ def test_dirichlet_solve_function_gradcheck(refine):
     cfg = TF.SolveConfig(torch.complex128, refine, "thomas")
     inputs = _small_system(refine)
     assert torch.autograd.gradcheck(
-        lambda d, oy, oz, b: TF._DirichletSolve.apply(d, oy, oz, b, cfg),
+        lambda d, oy, oz, b: TF.interior_solve(d, oy, oz, b, cfg),
         inputs, eps=1e-6, atol=1e-8, rtol=1e-6)
     # the forward really solves the system
     d, oy, oz, b = (t.detach() for t in inputs)
-    x = TF._DirichletSolve.apply(d, oy, oz, b, cfg)
+    x = TF.interior_solve(d, oy, oz, b, cfg)
     res = TS.apply_interior(TS.InteriorSystem(d, oy, oz), x) - b
     assert float(res.abs().max()) < 1e-12
 

@@ -8,6 +8,7 @@ import pytest
 from hmcmt2d_tpu_torch.ops import fused_factor as FF
 
 PLANS = {"schur_factor": FF.schur_factor_plan,
+         "schur_factor_polish": lambda q: FF.schur_factor_plan(q, polish=1),
          "bt_sweep_fwd": FF.bt_sweep_fwd_plan,
          "bt_sweep_bwd": FF.bt_sweep_bwd_plan}
 

@@ -145,7 +145,12 @@ def test_import_pulls_in_no_jax():
         "print(len([n for n in sys.modules if n.startswith('hmcmt2d_tpu_torch')]))\n"
         "print(bad)\n"
         "print(all(n in sys.modules for n in ('hmcmt2d_tpu_torch.parallel.multichain',\n"
-        "                                     'hmcmt2d_tpu_torch.utils.collectives')))\n")
+        "                                     'hmcmt2d_tpu_torch.utils.collectives',\n"
+        "                                     'hmcmt2d_tpu_torch.native',\n"
+        "                                     'hmcmt2d_tpu_torch.utils.cpu_reference',\n"
+        "                                     'hmcmt2d_tpu_torch.tools.summarize_checkpoint',\n"
+        "                                     'hmcmt2d_tpu_torch.tools.refresh_extend',\n"
+        "                                     'hmcmt2d_tpu_torch.tools.map_fit')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -165,6 +170,10 @@ def _imported_names(path: Path):
 def test_no_jax_import_in_source():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 18 and PKG / "parallel" / "multichain.py" in files
+    for new in (PKG / "native.py", PKG / "utils" / "cpu_reference.py",
+                PKG / "tools" / "summarize_checkpoint.py",
+                PKG / "tools" / "refresh_extend.py", PKG / "tools" / "map_fit.py"):
+        assert new in files, new
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]

@@ -96,6 +96,42 @@ def realistic(problem, m0: np.ndarray):
                              bg_flat=problem.bg_flat)
 
 
+def survey_arrays(arrays: dict, comps, data_type: str = "Impedance") -> dict:
+    """Problem arrays with the survey cut to the components ``comps``, every
+    (freq, rx, comp) triple observed, observations ones (complex for the
+    Impedance family) and errors 0.01, as the flagship's placeholders."""
+    n_freq, n_rx = len(arrays["freqs"]), len(arrays["rx_loc"])
+    f, r, d = np.meshgrid(np.arange(n_freq), np.arange(n_rx), np.arange(len(comps)),
+                          indexing="ij")
+    n = f.size
+    obs = np.ones(n, complex) if "Impedance" in data_type else np.ones(n)
+    return dict(arrays, data_type=np.asarray(data_type), data_comp=np.asarray(comps),
+                freq_id=f.ravel(), rx_id=r.ravel(), dt_id=d.ravel(), obs=obs,
+                weights=np.full(n, 100.0))
+
+
+def jax_problem_from_arrays(arrays: dict, cfg):
+    """The JAX ``InverseProblem`` that ``convert.problem_from_arrays`` builds
+    on the port's side, under the JAX ``SolveConfig`` ``cfg``."""
+    from hmcmt2d_tpu import make_mesh
+    from hmcmt2d_tpu.models.data import MTData
+    from hmcmt2d_tpu.models.forward import make_forward
+    from hmcmt2d_tpu.models.posterior import InverseProblem
+
+    mesh = make_mesh(arrays["y_len"], arrays["z_len"], air_layer=arrays["air_layer"],
+                     origin=arrays["origin"])
+    data = MTData(rx_loc=np.asarray(arrays["rx_loc"], float),
+                  freqs=np.asarray(arrays["freqs"], float),
+                  data_type=str(arrays["data_type"]),
+                  data_comp=tuple(str(c) for c in np.atleast_1d(arrays["data_comp"])),
+                  freq_id=np.asarray(arrays["freq_id"]), rx_id=np.asarray(arrays["rx_id"]),
+                  dt_id=np.asarray(arrays["dt_id"])).validate()
+    return InverseProblem(fwd=make_forward(mesh, data, cfg), obs=np.asarray(arrays["obs"]),
+                          weights=np.asarray(arrays["weights"], float),
+                          active_idx=np.asarray(arrays["active_idx"]),
+                          bg_flat=np.asarray(arrays["bg_flat"], float))
+
+
 def chain_models(m0: np.ndarray, n_chains: int, scale: float = 0.1,
                  seed: int = 0) -> np.ndarray:
     """(C, P) models around m0; chain 0 is m0 itself."""
@@ -215,3 +251,20 @@ def median_pool_rank(device) -> dict:
             A.WarmupOptions(adapt_mass=False, alpha_pool=pool), pool=group)
         dts[pool] = float(A.warmup_finalize(carry)[1].dt)
     return dts
+
+
+def single_mode_freq_rank(device, arrays, m) -> dict:
+    """One of two frequency ranks of a (1 chain x 2 freq) mesh: the summed
+    potential value and gradient of the survey in ``arrays`` (complex128
+    thomas), reduced over the freq group."""
+    torch.set_num_threads(1)
+    from hmcmt2d_tpu_torch import convert
+    from hmcmt2d_tpu_torch.models.forward import SolveConfig
+    from hmcmt2d_tpu_torch.parallel.multichain import ShardedSampler, make_device_mesh
+
+    prob = convert.problem_from_arrays(arrays, SolveConfig(torch.complex128, 0, "thomas"),
+                                       device=device)
+    ss = ShardedSampler(prob, 1.0, make_device_mesh(1, 2, device=device))
+    mt = torch.as_tensor(m)
+    (U, (mis, mn, _)), g = ss.potential_vg(mt, mt.flip(0))
+    return _numpy_tree({"U": U, "misfit": mis, "mnorm": mn, "grad": g})
