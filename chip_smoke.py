@@ -5,6 +5,12 @@ Run from the root of a checkout, on a machine with one CUDA GPU and nvcc:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --warmup-engines [N]`` runs phases 1-2 and then,
+in place of the rest, the hybrid run's warmup under thomas and under bcr
+at N iterations (300, the production length) with the production
+leapfrog keys, and prints each engine's warmup seconds, adapted dt,
+accept rate and misfit.
+
 Phases, each of which exits non-zero on failure:
 
 1. the card's name and power limit (nvidia-smi); TF32 off;
@@ -22,8 +28,8 @@ Phases, each of which exits non-zero on failure:
    run, held against the port's own complex128 thomas engine on the card;
 5. three HMC samples at C = 8 driven by that gradient;
 7. the inversion run through the command line, ``hmcmt2d-torch run``, on the
-   full-width flagship written to files: 8 chains, warmup under the thomas
-   engine, the Gauss-Newton mass, the switch to the fused kernels for the
+   full-width flagship written to files: 8 chains, warmup under the bcr
+   engine (the default under the fused kernels), the Gauss-Newton mass, the switch to the fused kernels for the
    dense-mass re-adaptation and the main phase, checkpoints, then a resume
    to more samples; with the launch counts of each run held to its fused
    gradient evaluations, and every output file checked;
@@ -45,6 +51,21 @@ Phases, each of which exits non-zero on failure:
    (b) the checkpoint tools on phase 7's run: ``summarize_checkpoint``,
    ``refresh_extend`` (launches counted against its fused evals), the
    summary of its checkpoint, and ``map_fit``;
+10. the block-cyclic-reduction engine of ``ops/solver.py`` (torch ops, as
+   XLA ops in the JAX package): (a) at the flagship (phase 4's models),
+   an unrefined complex64 factor-solve under thomas and bcr against the
+   complex128 solve, bcr's error within 10x thomas's; both refined 6
+   times and held to phase 4's limits against complex128 thomas, with
+   factor, solve and eval times, a profile, peak memory and no fused
+   launch; complex128 bcr within 1e-10 (gradient 1e-8); TF32 must be off;
+   (b) the GN build at the start model under thomas and bcr, measured the
+   same way: bcr's peak within 1 GB of thomas's, and one solve of its 128
+   right-hand sides sharing a bcr factor within the factor plus 10 copies
+   of the right-hand sides (a copy of the factor per right-hand side would
+   add ~25 GB); then ``hmcmt2d-torch run --warmup-solver thomas`` (the
+   JAX package's default) on phase 7's files cut shorter: warmup and the
+   GN build on thomas launch no fused kernel, then the fused kernels
+   (1, 14, 14) an eval;
 6. a JSON summary of the kernels, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -133,13 +154,12 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     return abs_err, abs_err / float(want.abs().max())
 
 
-def flagship_system(problem, m):
-    """The equilibrated complex64 interior system of the merged TE+TM solve
-    at model m (C, P), flattened to (B, nzi, q): the factor's input on the
-    main path (ops/solver.py factorize)."""
+def interior_at(problem, m):
+    """The interior system of the merged TE+TM solve at model m (C, P) in
+    the problem's solve dtype, (nfreq, C, 2, nzi, q): what ``factorize``
+    takes on the main path (models/forward.py factor_at)."""
     import torch
     from hmcmt2d_tpu_torch.models import forward as F
-    from hmcmt2d_tpu_torch.ops import fused_factor as FF
     from hmcmt2d_tpu_torch.ops import solver as S
 
     cfg = problem.fwd.cfg
@@ -148,8 +168,17 @@ def flagship_system(problem, m):
     omegas = 2.0 * np.pi * torch.as_tensor(problem.fwd.data.freqs,
                                            dtype=sig.dtype, device=sig.device)
     om = omegas.to(cfg.real_dtype).reshape((-1, 1, 1, 1, 1))
-    sys_ = S.interior_system(st, om, dtype=cfg.solve_dtype)
-    ssys, _ = S.equilibrate(sys_)
+    return S.interior_system(st, om, dtype=cfg.solve_dtype)
+
+
+def flagship_system(problem, m):
+    """The equilibrated complex64 interior system of the merged TE+TM solve
+    at model m (C, P), flattened to (B, nzi, q): the factor's input on the
+    main path (ops/solver.py factorize)."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    ssys, _ = S.equilibrate(interior_at(problem, m))
     return FF.flatten_system(*ssys)[:3]
 
 
@@ -497,9 +526,10 @@ def output_names(n_chains: int) -> list[str]:
 
 def check_cli_run(torch, problem, m0, smi, d: Path):
     """Phase 7: ``hmcmt2d-torch run`` on the flagship, written to files in
-    ``d``, then resumed; every fused gradient eval launches the factor once
-    and each sweep 14 times.  Returns the launch counts of the two runs; the
-    files and the checkpoint ``d / "run.ckpt.npz"`` stay for phase 9b."""
+    ``d``, then resumed; the warmup runs on bcr, and every fused gradient
+    eval launches the factor once and each sweep 14 times.  Returns the launch counts of the two runs and
+    the first run's phase seconds; the files and the checkpoint
+    ``d / "run.ckpt.npz"`` stay for phase 9b."""
     from hmcmt2d_tpu_torch.sampler import diagnostics as D
 
     n_chains, n_burn, n_mass, n_total, n_resumed = 8, 8, 4, 16, 20
@@ -530,9 +560,10 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
     rates = [n_chains * n / s["main"] if s["main"] > 0 else None
              for n, s in zip(n_main, secs)]
     rhat = D.split_rhat(models[n_warm:])
+    switch = "hybrid: warmup engine bcr -> main engine fused" in log1
     summary = {
         "cli_run": "hmcmt2d-torch run (flagship, full width, from files)",
-        "card": smi, "chains": n_chains, "rc": [rc1, rc2],
+        "card": smi, "chains": n_chains, "rc": [rc1, rc2], "switch_logged": switch,
         "wall_s": [wall1, wall2], "phase_s": secs,
         "adapted_dt": float(ck_["dt"]), "n_warm": n_warm, "rows": int(models.shape[0]),
         "accept_rate": {"warmup": float(accepts[:n_burn].mean()),
@@ -548,6 +579,8 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
     say(summary)
     if rc1 != 0 or rc2 != 0:
         fail(f"hmcmt2d-torch run returned {rc1}, {rc2}")
+    if not switch:
+        fail("hmcmt2d-torch run did not warm up on bcr and switch to the fused kernels")
     if missing:
         fail(f"missing output files: {missing}")
     if not (np.isfinite(stats).all() and np.isfinite(models).all()):
@@ -563,7 +596,7 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
                 "bt_sweep_bwd": 14 * n_eval}
         if counts != want or n_eval == 0:
             fail(f"run {i + 1}: launches {counts} != {want} for {n_eval} fused evals")
-    return launches1, launches2
+    return (launches1, launches2), secs[0]
 
 
 # phase 8
@@ -1056,7 +1089,366 @@ def check_tools(torch, d: Path, smi, dev):
     return launches
 
 
+# phase 10
+ENGINES_C64 = ("thomas", "bcr")
+ENGINES_C128 = ("bcr",)
+EXACT_U_REL_TOL, EXACT_GRAD_REL_TOL = 1e-10, 1e-8   # complex128 bcr vs thomas
+# an unrefined complex64 solve of the flagship operator may be at most this
+# many times as far from the complex128 solve as the complex64 thomas one:
+# after 6 refinement steps every engine reads the same U, which would hide
+# a bad factor
+RAW_RATIO = 10.0
+# the GN build (full_jacobian_chunked at the start model) under bcr may
+# peak this much above the same build under thomas: a copy of the flagship
+# bcr factor (~195 MB) per right-hand side would add ~25 GB
+GN_MARGIN_BYTES = 1e9
+# one solve of the GN build's 128 right-hand sides sharing a bcr factor may
+# peak at the factor's bytes plus this many times the right-hand sides'
+# (the level-by-level partial solutions and the column layout); a copy of
+# the factor per right-hand side would add 128 times the factor
+SOLVE_RHS_COPIES = 10
+GN_ROWS = 128
+NO_LAUNCHES = {"schur_factor": 0, "bt_sweep_fwd": 0, "bt_sweep_bwd": 0}
+
+
+def device_profile(torch, vg, m, m_ref) -> dict:
+    """Device time and kernel count of one gradient eval, the largest
+    kernels first: a profile of CUDA activity only (``profile_eval``'s CPU
+    events cost ~30 s to gather at ~14,000-24,000 kernels an eval)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        vg(m, m_ref)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and getattr(e, "self_device_time_total", 0) > 0]
+    top = sorted(kernels, key=lambda k: -k[1])[:5]
+    return {"device_ms": sum(ms for _, ms, _ in kernels),
+            "device_kernels": sum(n for _, _, n in kernels),
+            "top": [{"kernel": k[:80], "ms": ms, "count": n} for k, ms, n in top]}
+
+
+def engine_problem(problem, cfg):
+    from hmcmt2d_tpu_torch.models.forward import make_forward
+
+    return dataclasses.replace(problem, fwd=make_forward(problem.mesh, problem.fwd.data, cfg))
+
+
+def check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi):
+    """10a: the thomas and bcr engines of ops/solver.py on the flagship
+    (phase 4's models, B = 176): an unrefined complex64 factor-solve of the
+    interior system against the complex128 thomas solve, bcr's within
+    RAW_RATIO of thomas's; complex64 refined 6 times against phase 4's
+    complex128 thomas potential and gradient within phase 4's limits, with
+    factor, solve and eval times, a profile, the peak device memory and the
+    fused kernels' launches (none); complex128 bcr against complex128
+    thomas within 1e-10 / 1e-8."""
+    from hmcmt2d_tpu_torch.models.forward import SolveConfig
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.ops import solver as S
+    from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        fail("10a: TF32 is on for matmuls; the engines' complex64 products need full fp32")
+    rows, bad, vgs = [], [], []
+    rng = np.random.default_rng(5)
+    sys_ = interior_at(problem, m)              # complex64, (nfreq, C, 2, nzi, q)
+    shape = tuple(sys_.diag.shape)
+    b = torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape),
+                        dtype=torch.complex64, device=m.device)
+    x_ref = S.factor_solve(S.factorize(S.InteriorSystem(
+        sys_.diag.to(torch.complex128), sys_.offy.double(), sys_.offz.double())),
+        b.to(torch.complex128))
+    for method in ENGINES_C64:
+        t_engine = time.perf_counter()
+
+        def factor(method=method):
+            return S.factorize(sys_, dtype=torch.complex64, method=method)
+
+        factor_ms = time_ms(torch, factor, 3)
+        fac = factor()
+        solve_ms = time_ms(torch, lambda fac=fac: S.factor_solve(fac, b), 5)
+        _, raw = rel_err(torch, S.factor_solve(fac, b).to(torch.complex128), x_ref)
+        del fac, factor
+        prob = engine_problem(problem, SolveConfig(torch.complex64, 6, method))
+        vg = make_potential_vg(prob, 1.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FF.reset_launches()
+        (U, _), g = vg(m, m_ref)
+        torch.cuda.synchronize()
+        counts, peak = FF.launches(), torch.cuda.max_memory_allocated()
+        prof = device_profile(torch, vg, m, m_ref)
+        u_rel = float(((U.double() - U_ref).abs() / U_ref.abs()).max())
+        g64 = g.double()
+        cos = float(((g64 * g_ref).sum(-1) / (g64.norm(dim=-1) * g_ref.norm(dim=-1))).min())
+        finite = bool(torch.isfinite(U).all() and torch.isfinite(g).all())
+        rows.append({"phase": "10a", "engine": method, "dtype": "complex64",
+                     "refine": 6, "card": smi, "factor_ms": factor_ms, "solve_ms": solve_ms,
+                     "unrefined_rel_err": raw, "eval_ms": [],
+                     "device_ms": prof["device_ms"], "device_kernels": prof["device_kernels"],
+                     "peak_gb": peak / 1e9, "fused_launches": counts,
+                     "U_max_rel_err": u_rel, "grad_min_cosine": cos, "finite": finite,
+                     "top": prof["top"], "seconds": time.perf_counter() - t_engine})
+        vgs.append(vg)
+        if (counts != NO_LAUNCHES or not finite or not u_rel <= U_REL_TOL
+                or not cos >= GRAD_COS_MIN):
+            bad.append(f"{method}: launches {counts}, finite {finite}, "
+                       f"U {u_rel:.3e}, cosine {cos:.6f}")
+        del prob, U, g
+    del x_ref, b
+    raw = {row["engine"]: row["unrefined_rel_err"] for row in rows}
+    if not raw["bcr"] <= RAW_RATIO * raw["thomas"]:
+        bad.append(f"unrefined complex64 bcr solve {raw['bcr']:.3e} > {RAW_RATIO:g} x "
+                   f"thomas's {raw['thomas']:.3e}")
+    # the eval's wall time varies with the host by +-30%: time the engines
+    # in turns, three rounds
+    for _ in range(3):
+        for row, vg in zip(rows, vgs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vg(m, m_ref)
+            torch.cuda.synchronize()
+            row["eval_ms"].append((time.perf_counter() - t0) * 1e3)
+    del vgs
+    for row in rows:
+        row["eval_ms_median"] = float(np.median(row["eval_ms"]))
+        row["device_busy_share"] = row["device_ms"] / row["eval_ms_median"]
+        say(row)
+    for method in ENGINES_C128:
+        prob = engine_problem(problem, SolveConfig(torch.complex128, 0, method))
+        t0 = time.perf_counter()
+        (U, _), g = make_potential_vg(prob, 1.0)(m.double(), m_ref.double())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        u_rel = float(((U - U_ref).abs() / U_ref.abs()).max())
+        g_rel = float(((g - g_ref).norm(dim=-1) / g_ref.norm(dim=-1)).max())
+        say({"phase": "10a", "engine": method, "dtype": "complex128", "refine": 0,
+             "card": smi, "eval_ms": wall_ms, "U_max_rel_err": u_rel,
+             "grad_max_rel_norm_err": g_rel})
+        if not u_rel <= EXACT_U_REL_TOL or not g_rel <= EXACT_GRAD_REL_TOL:
+            bad.append(f"complex128 {method}: U {u_rel:.3e}, grad {g_rel:.3e}")
+        del prob, U, g
+    if bad:
+        fail("10a: " + "; ".join(bad))
+
+
+def output_finite(d: Path, names) -> list[str]:
+    """The files among ``names`` in ``d`` that hold a nan or an inf."""
+    import re
+
+    pat = re.compile(r"(?i)(?<![a-z])(nan|inf)")
+    return [n for n in names if pat.search((d / n).read_text())]
+
+
+def gn_peak_bytes(torch, problem, m, method) -> int:
+    """The peak device memory of ``full_jacobian_chunked`` at model m (P,)
+    under ``method`` (complex64, refine 3: the hybrid run's warmup engine)
+    over what was allocated when it started: the GN mass's Jacobian, one
+    forward pass of 128 rows, each backward pass 128 right-hand sides
+    sharing one factor."""
+    from hmcmt2d_tpu_torch.models import jacobian as JJ
+    from hmcmt2d_tpu_torch.models.forward import SolveConfig
+
+    prob = engine_problem(problem, SolveConfig(torch.complex64, 3, method))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    JJ.full_jacobian_chunked(prob, m, chunk=GN_ROWS)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def gn_solve_bytes(torch, problem, m, method) -> dict:
+    """One factor-solve as the GN build makes it: the complex64 factor of
+    the interior system at model m (P,), batch 1 on the chain axis, and
+    GN_ROWS right-hand sides on that axis.  The peak over what was
+    allocated before the factor, the factor's bytes and the right-hand
+    sides'."""
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    sys_ = interior_at(problem, m[None])           # (nfreq, 1, 2, nzi, q)
+    shape = list(sys_.diag.shape)
+    shape[1] = GN_ROWS
+    rng = np.random.default_rng(6)
+    b = torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape),
+                        dtype=torch.complex64, device=m.device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fac = S.factorize(sys_, dtype=torch.complex64, method=method)
+    x = S.factor_solve(fac, b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    parts = fac.fac.levels if method == "bcr" else (fac.fac,)
+    fac_bytes = sum(t.numel() * t.element_size() for part in parts for t in part
+                    if t is not None)
+    if tuple(x.shape) != tuple(b.shape) or not bool(torch.isfinite(x).all()):
+        fail(f"10b: the {method} solve of {GN_ROWS} right-hand sides gave {tuple(x.shape)}")
+    return {"peak_bytes": peak, "factor_bytes": fac_bytes,
+            "rhs_bytes": b.numel() * b.element_size()}
+
+
+def check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s):
+    """10b: the GN build's memory under bcr and thomas, measured the same
+    way at the start model: the whole build within GN_MARGIN_BYTES of
+    thomas's, and one solve of its 128 right-hand sides sharing a bcr
+    factor within the factor plus SOLVE_RHS_COPIES right-hand sides.  Then
+    ``hmcmt2d-torch run --warmup-solver thomas`` on phase 7's files cut to
+    burn-in 4, ``masswarmup: 2`` and 4 samples: warmup and the GN build on
+    thomas (complex64, refine 3) launch no fused kernel, every fused eval
+    after the switch launches (1, 14, 14), and every output file is
+    finite."""
+    import tempfile
+
+    from hmcmt2d_tpu_torch.models import jacobian as JJ
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+
+    m0_t = torch.as_tensor(m0, dtype=torch.float32, device=problem.device)
+    FF.reset_launches()
+    gn_peak = {meth: gn_peak_bytes(torch, problem, m0_t, meth) for meth in ("thomas", "bcr")}
+    solve = {meth: gn_solve_bytes(torch, problem, m0_t, meth) for meth in ("thomas", "bcr")}
+    gn_launches = FF.launches()
+    sb = solve["bcr"]
+    solve_limit = sb["factor_bytes"] + SOLVE_RHS_COPIES * sb["rhs_bytes"]
+    say({"phase": "10b", "gn_build_at_start_model": True, "card": smi,
+         "gn_peak_over_start_gb": {k: v / 1e9 for k, v in gn_peak.items()},
+         "gn_margin_gb": GN_MARGIN_BYTES / 1e9,
+         "solve_128_rhs": {k: {kk: vv / 1e9 for kk, vv in v.items()} for k, v in solve.items()},
+         "bcr_solve_limit_gb": solve_limit / 1e9, "launches": gn_launches})
+    if gn_launches != NO_LAUNCHES:
+        fail(f"10b: a GN build on thomas or bcr launched fused kernels: {gn_launches}")
+    if not gn_peak["bcr"] <= gn_peak["thomas"] + GN_MARGIN_BYTES:
+        fail(f"10b: the bcr GN build peaked {gn_peak['bcr'] / 1e9:.2f} GB over its start, "
+             f"thomas's {gn_peak['thomas'] / 1e9:.2f} GB + {GN_MARGIN_BYTES / 1e9:g} allowed")
+    if not sb["peak_bytes"] <= solve_limit:
+        fail(f"10b: one bcr solve of {GN_ROWS} right-hand sides peaked "
+             f"{sb['peak_bytes'] / 1e9:.2f} GB > {solve_limit / 1e9:.2f} GB")
+
+    n_burn, n_mass, n_total = 4, 2, 10
+    startup = (STARTUP.replace("burninsamples: 8", f"burninsamples: {n_burn}")
+               .replace("totalsamples:  16", f"totalsamples:  {n_total}")
+               .replace("masswarmup:    4", f"masswarmup:    {n_mass}"))
+    gn = {}
+    full_jacobian = JJ.full_jacobian_chunked
+
+    def measured(*args, **kw):
+        torch.cuda.synchronize()
+        gn.update(launches_before=FF.launches(), base_bytes=torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = full_jacobian(*args, **kw)
+        torch.cuda.synchronize()
+        gn.update(seconds=time.perf_counter() - t0, peak_bytes=torch.cuda.max_memory_allocated(),
+                  launches_after=FF.launches())
+        return out
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        write_run_files(problem, m0, d, startup)
+        ck = d / "run.ckpt.npz"
+        JJ.full_jacobian_chunked = measured
+        try:
+            rc, launches, wall, log = cli_run(torch, [
+                "run", str(d / "startup"), "--outdir", str(d), "--checkpoint", str(ck),
+                "--checkpoint-every", "2", "--warmup-solver", "thomas"])
+        finally:
+            JJ.full_jacobian_chunked = full_jacobian
+        names = output_names(8)
+        missing = [n for n in names if not (d / n).exists()]
+        nonfinite = output_finite(d, [n for n in names if n not in missing])
+        with np.load(ck) as z:
+            lf = z["lf_steps"][:, 0].astype(int)
+            finite = bool(np.isfinite(z["stats"]).all() and np.isfinite(z["models"]).all())
+            acc = float(z["accepts"][n_burn + n_mass:].mean())
+    evals = 1 + int(lf[n_burn:n_total].sum())
+    want = {"schur_factor": evals, "bt_sweep_fwd": 14 * evals, "bt_sweep_bwd": 14 * evals}
+    switch = "hybrid: warmup engine thomas -> main engine fused" in log
+    say({"phase": "10b", "cli_run": "hmcmt2d-torch run --warmup-solver thomas", "card": smi,
+         "rc": rc, "wall_s": wall, "phase_s": phase_seconds(log), "phase7_phase_s": phase7_s,
+         "switch_logged": switch, "fused_evals": evals, "launches": launches,
+         "gn_build": gn, "gn_peak_over_start_gb": (gn["peak_bytes"] - gn["base_bytes"]) / 1e9
+         if "peak_bytes" in gn else None,
+         "main_accept_rate": acc, "leapfrog_steps": lf.tolist()})
+    if rc != 0 or not switch:
+        fail(f"10b: rc {rc}, engine switch logged {switch}")
+    if missing or nonfinite or not finite:
+        fail(f"10b: missing {missing}, non-finite files {nonfinite}, checkpoint finite {finite}")
+    if "peak_bytes" not in gn or gn["launches_after"] != NO_LAUNCHES:
+        fail(f"10b: the GN build did not run, or warmup and GN launched fused kernels: {gn}")
+    if launches != want:
+        fail(f"10b: launches {launches} != {want} for {evals} fused evals")
+
+
+# ``--warmup-engines [N]``: the hybrid run's warmup engines at the production
+# warmup length, with the round-5 production keys
+# (runs/dprism3d_r5/startupfile) in place of phase 7's cuts
+PRODUCTION_KEYS = (("timeinterval:  0.01", "timeinterval:  0.03"),
+                   ("timestep:      4 4", "timestep:      6 10"),
+                   ("masswarmup:    4", "masswarmup:    0"))
+WARMUP_DONE = (r"warmup (\d+) iters in [\d.]+s: adapted dt=([^,]+), accept~([^,]+), "
+               r"misfit (\S+) -> (\S+)")
+
+
+def compare_warmup_engines(torch, problem, m0, smi, n_burn: int) -> None:
+    """``hmcmt2d-torch run --warmup-solver thomas``, then ``bcr``, on the
+    flagship from files: 8 chains, ``n_burn`` warmup iterations, the GN mass
+    under the warmup engine, then 2 samples on the fused kernels.  Both
+    runs take the same seed and so the same draws: the engines differ only
+    in rounding.  Per engine: the warmup's seconds and seconds an
+    iteration, the adapted dt, the warmup's accept rate, the misfit from
+    start to end, the misfit and dt every 25 iterations, and the GN
+    build's seconds."""
+    import re
+    import tempfile
+
+    startup = (STARTUP.replace("burninsamples: 8", f"burninsamples: {n_burn}")
+               .replace("totalsamples:  16", f"totalsamples:  {n_burn + 2}"))
+    for old, new in PRODUCTION_KEYS:
+        if old not in startup:
+            fail(f"warmup engines: phase 7's startup has no {old!r}")
+        startup = startup.replace(old, new)
+    rows = {}
+    for engine in ("thomas", "bcr"):
+        with tempfile.TemporaryDirectory() as d:
+            d = Path(d)
+            write_run_files(problem, m0, d, startup)
+            rc, launches, wall, log = cli_run(torch, [
+                "run", str(d / "startup"), "--outdir", str(d), "--progress-every", "25",
+                "--warmup-solver", engine])
+        done = re.search(WARMUP_DONE, log)
+        segs = [tuple(float(x) for x in mm) for mm in re.findall(
+            r"\[hmcmt2d\] warmup \d+/\d+: misfit=(\S+) dt=(\S+) ", log)]
+        secs = phase_seconds(log)
+        if rc != 0 or not done or f"hybrid: warmup engine {engine}" not in log:
+            fail(f"warmup engines: the {engine} run gave rc {rc}, warmup line {bool(done)}")
+        n, dt, acc, mis0, mis1 = done.groups()
+        rows[engine] = {"phase": "warmup_engines", "warmup_solver": engine, "card": smi,
+                        "warmup_iters": int(n), "warmup_s": secs["warmup"],
+                        "s_per_iter": secs["warmup"] / int(n), "adapted_dt": float(dt),
+                        "warmup_accept": float(acc), "misfit_start": float(mis0),
+                        "misfit_end": float(mis1), "gn_build_s": secs["dense_mass_build"],
+                        "phase_s": secs, "wall_s": wall, "launches": launches,
+                        "segments_misfit_dt": segs}
+        say(rows[engine])
+    t, b = rows["thomas"], rows["bcr"]
+    say({"phase": "warmup_engines", "card": smi,
+         "bcr_over_thomas": {"s_per_iter": b["s_per_iter"] / t["s_per_iter"],
+                             "adapted_dt": b["adapted_dt"] / t["adapted_dt"],
+                             "misfit_end": b["misfit_end"] / t["misfit_end"],
+                             "gn_build_s": b["gn_build_s"] / t["gn_build_s"]},
+         "warmup_accept": [t["warmup_accept"], b["warmup_accept"]]})
+
+
 def main() -> None:
+    n_warmup = 0
+    if sys.argv[1:]:
+        if sys.argv[1] != "--warmup-engines" or len(sys.argv) > 3:
+            fail("usage: python3 chip_smoke.py [--warmup-engines [N]]")
+        n_warmup = int(sys.argv[2]) if len(sys.argv) == 3 else 300
+
     try:
         import torch
     except ImportError:
@@ -1099,6 +1491,12 @@ def main() -> None:
     say(f"[setup] flagship {problem.mesh.nz}x{problem.mesh.ny} cells, "
         f"{problem.fwd.data.n_data} data, {problem.n_param} parameters, C={C}; "
         f"{time.perf_counter() - t0:.1f} s")
+    if n_warmup:
+        compare_warmup_engines(torch, problem, m0, smi, n_warmup)
+        say(smi_line())
+        say({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                    "count": torch.cuda.device_count()}})
+        return
 
     # phase 3
     kres = check_kernels(torch, problem, m, flops_peak, bw_peak)
@@ -1154,7 +1552,7 @@ def main() -> None:
         fail(f"U relative error {u_rel:.3e} > {U_REL_TOL}")
     if not float(cos.min()) >= GRAD_COS_MIN:
         fail(f"gradient cosine {float(cos.min()):.6f} < {GRAD_COS_MIN}")
-    del ref, g_ref
+    del ref
 
     # phase 5: a few HMC iterations on the main path
     opts = hmc_options(H)
@@ -1184,7 +1582,7 @@ def main() -> None:
     run_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_run_"))
     try:
         # phase 7: the inversion run through the command line
-        run_launches = check_cli_run(torch, problem, m0, smi, run_dir)
+        run_launches, phase7_s = check_cli_run(torch, problem, m0, smi, run_dir)
 
         # phase 8: the sharded sampler in spawned ranks
         sharded_launches = check_sharded(torch, problem, m0, vg, opts, mass, m, m_ref,
@@ -1195,6 +1593,11 @@ def main() -> None:
         tool_launches = check_tools(torch, run_dir, smi, dev)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
+
+    # phase 10: thomas and bcr, their GN builds, and a run warmed up on thomas
+    check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi)
+    del U_ref, g_ref
+    check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s)
 
     # phase 6
     replaces = {

@@ -37,9 +37,19 @@ def _device(args) -> torch.device:
     return dev
 
 
+# engines of the JAX package that the port leaves out (ROADMAP, "Not to
+# port"): a JAX command line naming one parses, and is refused with the
+# engine to use instead
+NOT_PORTED = {"thomas_blocked": "--solver bcr", "gj": "--inv lu"}
+
+
 def _solve_cfg(args, device: torch.device):
     from .models.forward import SolveConfig, default_config
 
+    for name in (args.solver, args.inv):
+        if name in NOT_PORTED:
+            raise SystemExit(f"{name} is a JAX engine the port leaves out (slower "
+                             f"than its alternative on the H100): use {NOT_PORTED[name]}")
     if args.precision == "auto":
         cfg = default_config(device)
     elif args.precision == "f64":
@@ -63,13 +73,16 @@ def _solve_cfg(args, device: torch.device):
 def _warmup_cfg(args, solve_cfg):
     """Resolve --warmup-solver into a hybrid warmup SolveConfig (or None).
 
-    'auto' warms up with the exact thomas engine whenever the main engine is
-    the fused one: at a high-misfit random start the fused engine's residual
-    noise can collapse dual averaging, and warmup is a small share of a run.
+    'auto' warms up with an exact engine whenever the main engine is the
+    fused one: at a high-misfit random start the fused engine's residual
+    noise can collapse dual averaging.  The engine is bcr, where the JAX
+    package takes thomas: over the flagship's 300 production warmup
+    iterations on an H100, bcr took 0.71x thomas's seconds with the same
+    accept rate and an adapted dt 6% apart (PERF.md, "warmup engines").
     """
     ws = args.warmup_solver
     if ws == "auto":
-        ws = "thomas" if solve_cfg.solver_method == "fused" else "same"
+        ws = "bcr" if solve_cfg.solver_method == "fused" else "same"
     if ws == "same" or ws == solve_cfg.solver_method:
         return None
     # refine_iters = 3 for the exact warmup engine: at extreme high-misfit
@@ -238,8 +251,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--precision", choices=["auto", "f32", "f64"], default="auto")
     ap.add_argument("--refine", type=int, default=1,
                     help="iterative-refinement steps for f32 solves")
-    ap.add_argument("--solver", default="auto", choices=["auto", "thomas", "fused"],
-                    help="factorisation engine (fused = the CUDA kernels)")
+    ap.add_argument("--solver", default="auto",
+                    choices=["auto", "thomas", "bcr", "fused", "thomas_blocked"],
+                    help="factorisation engine (fused = the CUDA kernels; "
+                         "thomas_blocked, a JAX engine, is refused)")
+    ap.add_argument("--inv", default="auto", choices=["auto", "lu", "gj"],
+                    help="batched inverse of thomas and bcr: LU "
+                         "(torch.linalg.inv); gj, a JAX engine, is refused")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     runp = sub.add_parser("run", help="run the HMC inversion")
@@ -268,9 +286,9 @@ def build_parser() -> argparse.ArgumentParser:
                       help="write every Nth sample row of the per-chain "
                            "model/data dumps (stats log stays full)")
     runp.add_argument("--warmup-solver", default="auto",
-                      choices=["auto", "same", "thomas", "fused"],
+                      choices=["auto", "same", "thomas", "bcr", "fused"],
                       help="hybrid schedule: engine for the warmup phase "
-                           "(auto = thomas when the main engine is fused; "
+                           "(auto = bcr when the main engine is fused; "
                            "same = no hybrid)")
     runp.add_argument("--profile", default="",
                       help="write a torch.profiler trace of the run to this "

@@ -37,10 +37,11 @@ from .data import MTData
 class SolveConfig:
     """Precision policy for the PDE solves.
 
-    ``solver_method`` is ``"thomas"`` (block Thomas with batched
-    ``torch.linalg.inv``, exact in complex128) or ``"fused"`` (the CUDA
-    kernels of ops/fused_factor.py on complex64 factors, with
-    ``refine_iters`` steps of iterative refinement).
+    ``solver_method`` is ``"thomas"`` (block Thomas, exact in complex128),
+    ``"bcr"`` (block cyclic reduction) or ``"fused"`` (the CUDA kernels of
+    ops/fused_factor.py on complex64 factors), with ``refine_iters`` steps
+    of iterative refinement.  Unlike the JAX package, whose field default
+    is ``"bcr"``, the default engine here is ``"thomas"``.
     ``stale_refine_iters`` refinement steps serve a solve with a stale
     (trajectory-amortised) factor, see :func:`solve_dirichlet`.
     """

@@ -3,17 +3,21 @@
 PyTorch counterpart of ``hmcmt2d_tpu/ops/solver.py``.  With nodes ordered
 y-fastest the interior operator is block tridiagonal over z-lines: the
 diagonal blocks are tridiagonal (y-coupling) and the off-diagonal blocks
-diagonal (z-coupling).  Block-Thomas elimination computes the per-line
-inverse Schur complements once; they serve the forward and the adjoint solve,
-since the operator is complex-symmetric.
+diagonal (z-coupling).  A factorisation is computed once and serves the
+forward and the adjoint solve, since the operator is complex-symmetric.
 
-Two engines:
+Three engines (``factorize(method=...)``):
 
-* ``"thomas"``: the Schur chain with batched ``torch.linalg.inv`` in the
-  system's dtype (complex128 on the CPU: exact to rounding);
+* ``"thomas"``: block-Thomas elimination, the Schur chain of per-line
+  inverses, in the system's dtype (complex128 on the CPU: exact to
+  rounding);
+* ``"bcr"``: block cyclic reduction, ceil(log2(nzi + 1)) rounds of batched
+  inverses and matrix products;
 * ``"fused"``: the hand-written CUDA kernels of :mod:`.fused_factor` on a
   complex64 factor, with iterative refinement against the matrix-free
   operator (the production setting on the GPU).
+
+thomas and bcr invert their blocks with ``torch.linalg.inv`` (pivoted LU).
 """
 
 from __future__ import annotations
@@ -112,35 +116,40 @@ def rhs_axes(fac_batch: torch.Size, b: torch.Tensor) -> list[int]:
     return [i for i, (f, n) in enumerate(zip(fb, bb)) if f == 1 and n > 1]
 
 
-def bt_solve(fac: BTFactor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b given the factorisation; b is (..., nzi, nyi).  The
-    operator is complex-symmetric, so this also solves the transpose.
-
-    Right-hand sides on axes where the factor's batch is 1 become the
-    columns of one matrix product per line (G is never copied per column)."""
-    G, offz = fac
-    b = b.to(G.dtype)
-    c = offz.to(G.dtype)[..., None]
-    nzi, nyi = G.shape[-3], G.shape[-1]
-    wide = rhs_axes(G.shape[:-3], b)
+def _as_columns(fac_batch: torch.Size, b: torch.Tensor):
+    """b (..., nzi, nyi) as column blocks v (..., nzi, nyi, k), and the map
+    back.  Right-hand sides on the :func:`rhs_axes` become the k columns
+    of one matrix product per block, so a factor shared by them is never
+    expanded (or copied) to their batch; elsewhere k = 1."""
+    wide = rhs_axes(fac_batch, b)
+    if not wide:
+        return b[..., None], lambda x: x[..., 0]
     bb, nd = b.shape[:-2], b.ndim
     last = list(range(nd - len(wide), nd))
-    if wide:
-        narrow = tuple(1 if i in wide else n for i, n in enumerate(bb))
-        v = b.movedim(wide, last).reshape(narrow + (nzi, nyi, -1))
-    else:
-        v = b[..., None]
+    narrow = tuple(1 if i in wide else n for i, n in enumerate(bb))
+    v = b.movedim(wide, last).reshape(narrow + b.shape[-2:] + (-1,))
+
+    def restore(x):
+        x = x.reshape(x.shape[:-1] + tuple(bb[i] for i in wide)).squeeze(tuple(wide))
+        return x.movedim(last, wide)
+
+    return v, restore
+
+
+def bt_solve(fac: BTFactor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b given the factorisation; b is (..., nzi, nyi).  The
+    operator is complex-symmetric, so this also solves the transpose."""
+    G, offz = fac
+    c = offz.to(G.dtype)[..., None]
+    v, restore = _as_columns(G.shape[:-3], b.to(G.dtype))
+    nzi = G.shape[-3]
     ys = [G[..., 0, :, :] @ v[..., 0, :, :]]
     for j in range(1, nzi):
         ys.append(G[..., j, :, :] @ (v[..., j, :, :] + c[..., j - 1, :, :] * ys[-1]))
     xs = [ys[-1]]
     for j in range(nzi - 2, -1, -1):
         xs.append(ys[j] + G[..., j, :, :] @ (c[..., j, :, :] * xs[-1]))
-    x = torch.stack(xs[::-1], dim=-3)     # (..., nzi, nyi, columns)
-    if not wide:
-        return x[..., 0]
-    x = x.reshape(x.shape[:-1] + tuple(bb[i] for i in wide)).squeeze(tuple(wide))
-    return x.movedim(last, wide)
+    return restore(torch.stack(xs[::-1], dim=-3))
 
 
 def equilibrate(sys: InteriorSystem) -> tuple[InteriorSystem, torch.Tensor]:
@@ -164,15 +173,158 @@ def direct_solve(sys: InteriorSystem, b: torch.Tensor, dtype=None) -> torch.Tens
     return s * bt_solve(bt_factor(ssys), s * b)
 
 
+class BCRLevel(NamedTuple):
+    """One block-cyclic-reduction level: the inverses of the eliminated
+    (0-based even) diagonal blocks and their left and right couplings.
+
+    Level 0 keeps the couplings in their natural diagonal form (the z-edge
+    coupling of the 5-point stencil is diagonal): ``L`` and ``R`` are
+    (..., ne, q) vectors there and dense (..., ne, q, q) blocks at deeper
+    levels.  The last level holds the one remaining block inverse, with
+    ``L = R = None``."""
+
+    Dinv: torch.Tensor
+    L: torch.Tensor | None
+    R: torch.Tensor | None
+
+
+class BCRFactor(NamedTuple):
+    """Block cyclic reduction of the interior operator: the same reusable
+    direct factorisation as :class:`BTFactor`, built in log2 rounds of
+    batched inverses and products instead of nzi sequential Schur steps.
+    Complex-symmetric throughout, so it solves the transpose too."""
+
+    levels: tuple
+
+
+def _T(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(-1, -2)
+
+
+def bcr_factor(sys: InteriorSystem) -> BCRFactor:
+    """Cyclic reduction of the interior block-tridiagonal system.
+
+    Pads the nzi z-lines to N = 2^m - 1 with identity blocks and zero
+    couplings (decoupled), then eliminates the 0-based even blocks level
+    by level: for kept (odd) j,
+        D'_j = D_j - C_{j-1}^T Dinv_{j-1} C_{j-1} - C_j Dinv_{j+1} C_j^T
+        C'_(j-1)/2 = C_j Dinv_{j+1} C_{j+1}
+    (matrix blocks (j, j+1) are -C_j; complex symmetry is preserved)."""
+    diag, offy, offz = sys
+    T = _dense_blocks(diag, offy)
+    batch = torch.broadcast_shapes(T.shape[:-3], offz.shape[:-2])
+    T = T.expand(batch + T.shape[-3:])
+    nzi, q = T.shape[-3], T.shape[-1]
+    N = 2 ** nzi.bit_length() - 1          # the smallest 2^m - 1 >= nzi
+    if N == 1:
+        return BCRFactor((BCRLevel(torch.linalg.inv(T), None, None),))
+    eye = torch.eye(q, dtype=T.dtype, device=T.device)
+    T = torch.cat([T, eye.expand(batch + (N - nzi, q, q))], dim=-3)
+    c = torch.cat([offz.to(T.dtype).expand(batch + offz.shape[-2:]),
+                   T.new_zeros(batch + (N - nzi, q))], dim=-2)     # (..., N-1, q)
+    levels = []
+
+    # level 0: diagonal couplings
+    Dinv = torch.linalg.inv(T[..., 0::2, :, :])
+    zv = torch.zeros_like(c[..., :1, :])
+    levels.append(BCRLevel(Dinv, torch.cat([zv, c[..., 1::2, :]], dim=-2),  # C_{i-1}, even i
+                           torch.cat([c[..., 0::2, :], zv], dim=-2)))       # C_i
+    cL, cR = c[..., 0::2, :], c[..., 1::2, :]      # C_{j-1}, C_j for kept (odd) j
+    k0, k1 = Dinv[..., :(N - 1) // 2, :, :], Dinv[..., 1:, :, :]   # Dinv_{j-1}, Dinv_{j+1}
+    Dl = (T[..., 1::2, :, :]
+          - cL[..., :, None] * k0 * cL[..., None, :]
+          - cR[..., :, None] * k1 * cR[..., None, :])
+    # C'_k = diag(c_j) Dinv_{j+1} diag(c_{j+1}): c_j is cR, c_{j+1} the next
+    # kept block's cL
+    Cl = cR[..., :-1, :, None] * k1[..., :-1, :, :] * cL[..., 1:, None, :]
+
+    # dense levels
+    while Dl.shape[-3] > 1:
+        nl = Dl.shape[-3]
+        Dinv = torch.linalg.inv(Dl[..., 0::2, :, :])
+        zb = torch.zeros_like(Cl[..., :1, :, :])
+        levels.append(BCRLevel(Dinv, torch.cat([zb, Cl[..., 1::2, :, :]], dim=-3),
+                               torch.cat([Cl[..., 0::2, :, :], zb], dim=-3)))
+        CL, CR = Cl[..., 0::2, :, :], Cl[..., 1::2, :, :]
+        k0, k1 = Dinv[..., :(nl - 1) // 2, :, :], Dinv[..., 1:, :, :]
+        Dn = Dl[..., 1::2, :, :] - _T(CL) @ (k0 @ CL) - CR @ (k1 @ _T(CR))
+        # at nl == 3 a single block remains, with no couplings
+        Cl = (CR[..., :-1, :, :] @ (k1[..., :-1, :, :] @ Cl[..., 2::2, :, :])
+              if nl > 3 else Cl[..., :0, :, :])
+        Dl = Dn
+    levels.append(BCRLevel(torch.linalg.inv(Dl), None, None))
+    return BCRFactor(tuple(levels))
+
+
+def bcr_solve(fac: BCRFactor, b: torch.Tensor) -> torch.Tensor:
+    """Solve given a :func:`bcr_factor`; b is (..., nzi, q): the
+    right-hand side reduced level by level, the one-block solve, then the
+    back substitution.  Solves the transpose too (complex symmetry).
+
+    Products take the whole of a level's coupling blocks and drop the
+    unused end block of the result, rather than slice the factor first:
+    a slice of a batched factor is not one strided batch, and
+    ``torch.matmul`` would copy it on every solve."""
+    levels = fac.levels
+    D0 = levels[0].Dinv
+    nzi = b.shape[-2]
+    N = 2 * D0.shape[-3] - 1
+    v, restore = _as_columns(D0.shape[:-3], b.to(D0.dtype))
+    if N > nzi:
+        v = torch.cat([v, v.new_zeros(v.shape[:-3] + (N - nzi,) + v.shape[-2:])], dim=-3)
+
+    ys = []
+    bl = v
+    for Dinv, L, R in levels[:-1]:
+        y = Dinv @ bl[..., 0::2, :, :]
+        ys.append(y)
+        # b'_j = b_j + C_{j-1}^T y_{j-1} + C_j y_{j+1}: C_{j-1} is R of the
+        # eliminated j-1, C_j is L of the eliminated j+1
+        if L.ndim < Dinv.ndim:          # level 0: diagonal couplings
+            bl = (bl[..., 1::2, :, :] + R[..., :-1, :, None] * y[..., :-1, :, :]
+                  + L[..., 1:, :, None] * y[..., 1:, :, :])
+        else:
+            bl = (bl[..., 1::2, :, :] + (_T(R) @ y)[..., :-1, :, :]
+                  + (L @ y)[..., 1:, :, :])
+
+    x = levels[-1].Dinv @ bl
+    for (Dinv, L, R), y in zip(levels[-2::-1], ys[::-1]):
+        zx = torch.zeros_like(x[..., :1, :, :])
+        xl = torch.cat([zx, x], dim=-3)              # x_{i-1} for even i
+        xr = torch.cat([x, zx], dim=-3)              # x_{i+1}
+        if L.ndim < Dinv.ndim:
+            rhs = L[..., None] * xl + R[..., None] * xr
+        else:
+            rhs = _T(L) @ xl + R @ xr
+        xe = y + Dinv @ rhs
+        # interleave the eliminated (even) and kept (odd) blocks
+        ne = xe.shape[-3]
+        out = xe.new_zeros(torch.broadcast_shapes(xe.shape[:-3], x.shape[:-3])
+                           + (2 * ne - 1,) + xe.shape[-2:])
+        out[..., 0::2, :, :] = xe
+        out[..., 1::2, :, :] = x
+        x = out
+    return restore(x[..., :nzi, :, :])
+
+
 class Factorization(NamedTuple):
     """Equilibrated factorisation reusable across solves: ``fac`` is a
-    :class:`BTFactor` (thomas) or a :class:`FusedFactor` (fused kernels)."""
+    :class:`BTFactor` (thomas), a :class:`BCRFactor` (bcr) or a
+    :class:`FusedFactor` (the fused kernels)."""
 
-    fac: BTFactor | FusedFactor
+    fac: BTFactor | BCRFactor | FusedFactor
     s: torch.Tensor
 
 
+FACTOR_FN = {"thomas": bt_factor, "bcr": bcr_factor}
+
+
 def factorize(sys: InteriorSystem, dtype=None, method: str = "thomas") -> Factorization:
+    """Equilibrate ``sys``, cast it to ``dtype`` and factorise it with the
+    engine ``method``.  An unknown name raises: no engine falls back to
+    another."""
+    if method not in FACTOR_FN and method != "fused":
+        raise ValueError(f"unknown solver method {method!r}")
     ssys, s = equilibrate(sys)
     if dtype is not None:
         rdt = REAL_DTYPE[dtype]
@@ -180,10 +332,8 @@ def factorize(sys: InteriorSystem, dtype=None, method: str = "thomas") -> Factor
                               ssys.offz.to(rdt))
     if method == "fused":
         fac = fused_schur_factor(*ssys)
-    elif method == "thomas":
-        fac = bt_factor(ssys)
     else:
-        raise ValueError(f"unknown solver method {method!r}")
+        fac = FACTOR_FN[method](ssys)
     return Factorization(fac, s)
 
 
@@ -205,10 +355,11 @@ def _fused_solve(fac: FusedFactor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+SOLVE_FN = {FusedFactor: _fused_solve, BCRFactor: bcr_solve, BTFactor: bt_solve}
+
+
 def factor_solve(f: Factorization, b: torch.Tensor) -> torch.Tensor:
-    if isinstance(f.fac, FusedFactor):
-        return f.s * _fused_solve(f.fac, f.s * b)
-    return f.s * bt_solve(f.fac, f.s * b)
+    return f.s * SOLVE_FN[type(f.fac)](f.fac, f.s * b)
 
 
 def refined_solve(sys: InteriorSystem, f: Factorization, b: torch.Tensor,

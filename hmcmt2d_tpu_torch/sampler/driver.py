@@ -252,10 +252,11 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
     for more lines.
 
     ``warmup_solve_cfg`` turns on the hybrid engine schedule: warmup runs
-    under that engine (typically exact thomas), and the run switches to the
-    ``solve_cfg`` engine (typically the fused kernels) before the dense-mass
-    phase, starting fresh there at the warmed-up models.  The Gauss-Newton
-    Jacobian is taken under the warmup engine.
+    under that engine (an exact one: bcr from the CLI by default, or
+    thomas), and the run switches to the ``solve_cfg`` engine (typically
+    the fused kernels) before the dense-mass phase, starting fresh there
+    at the warmed-up models.  The Gauss-Newton Jacobian is taken under the
+    warmup engine.
     """
     n_chains = n_chains or cfg.n_chains
     seed = cfg.seed if seed is None else seed

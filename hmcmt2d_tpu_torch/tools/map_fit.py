@@ -16,7 +16,8 @@ the log-conductivity bounds after each step.  ``--seg`` only sets how often
 a progress line is printed.  Usage::
 
     python -m hmcmt2d_tpu_torch.tools.map_fit <startupfile> [--iters N]
-        [--regs 1.0,0.01] [--lr 0.03] [--chains 4] [--solver fused|thomas]
+        [--regs 1.0,0.01] [--lr 0.03] [--chains 4]
+        [--solver thomas|bcr|fused]
         [--out out.json] [--device cpu]
 """
 
@@ -50,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--regs", default="1.0,0.01")
     ap.add_argument("--lr", type=float, default=0.03)
     ap.add_argument("--chains", type=int, default=4)
-    ap.add_argument("--solver", default="auto", choices=["auto", "thomas", "fused"])
+    ap.add_argument("--solver", default="auto",
+                    choices=["auto", "thomas", "bcr", "fused"])
     ap.add_argument("--refine", type=int, default=6)
     ap.add_argument("--out", default="")
     add_device_arg(ap)

@@ -131,7 +131,11 @@ def test_engine_rules_match_jax(precision, solver, refine, warmup):
     tw, jw = cli._warmup_cfg(a, t), JC._warmup_cfg(a, j)
     assert (tw is None) == (jw is None)
     if tw is not None:
-        assert (tw.solver_method, tw.refine_iters) == (jw.solver_method, jw.refine_iters)
+        # under a fused main engine 'auto' warms up on bcr in the port, on
+        # thomas in JAX (a deliberate difference, measured on the card)
+        port_auto = warmup == "auto" and t.solver_method == "fused"
+        want = "bcr" if port_auto else jw.solver_method
+        assert (tw.solver_method, tw.refine_iters) == (want, jw.refine_iters)
 
 
 def test_fused_f64_is_refused():

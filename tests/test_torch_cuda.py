@@ -188,6 +188,44 @@ def test_jacobian_on_card_matches_cpu_complex128(cuda_device):
     assert float(np.abs(J - J_ref).max() / np.abs(J_ref).max()) < 1e-4
 
 
+def test_bcr_on_card_matches_cpu_complex128(cuda_device):
+    """The tiny flagship's potential and gradient on the card under
+    complex64 bcr, refined 6 times, against exact complex128 thomas on the
+    CPU, with no fused kernel launch; and with no refinement to hide a bad
+    factor, a complex64 bcr solve of its interior system on the card
+    within 10x the complex64 thomas solve's error there."""
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    cfg = SolveConfig(torch.complex64, 6, "bcr")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gpu, m0 = entry.flagship_problem(tiny=True, device=cuda_device, cfg=cfg)
+    cpu, _ = entry.flagship_problem(tiny=True, device="cpu")
+    rng = np.random.default_rng(0)
+    m = m0 + 0.1 * rng.standard_normal((2, len(m0)))
+    FF.reset_launches()
+    mg = torch.as_tensor(m, dtype=torch.float32, device=cuda_device)
+    (U, _), g = make_potential_vg(gpu, 1.0)(mg, mg)
+    assert FF.launches() == {"schur_factor": 0, "bt_sweep_fwd": 0, "bt_sweep_bwd": 0}
+    mc = torch.as_tensor(m)
+    (Uc, _), gc = make_potential_vg(cpu, 1.0)(mc, mc)
+    assert relerr(U.cpu().double(), Uc) < 1e-4
+    g = g.cpu().double()
+    cos = (g * gc).sum(-1) / (g.norm(dim=-1) * gc.norm(dim=-1))
+    assert float(cos.min()) > 0.9999
+
+    om = 2 * np.pi * torch.as_tensor(cpu.fwd.data.freqs).reshape((-1, 1, 1, 1, 1))
+    sys_ = S.interior_system(cpu.fwd.merged_stencil(cpu.sigma2d(mc)), om)
+    b = torch.as_tensor(rng.standard_normal(tuple(sys_.diag.shape))
+                        + 1j * rng.standard_normal(tuple(sys_.diag.shape)))
+    want = S.factor_solve(S.factorize(sys_), b)
+    sys_g = S.InteriorSystem(*(t.to(cuda_device) for t in sys_))
+    err = {meth: relerr(S.factor_solve(S.factorize(sys_g, torch.complex64, meth),
+                                       b.to(cuda_device)).cpu().to(want.dtype), want)
+           for meth in ("thomas", "bcr")}
+    assert 0 < err["thomas"] < 1e-2
+    assert err["bcr"] <= 10 * err["thomas"], err
+
+
 def test_run_inversion_main_phase_on_the_kernels(cuda_device):
     """A hybrid run (thomas warmup, fused main phase) on the card: the main
     phase launches the factor once per fused gradient eval (one at the

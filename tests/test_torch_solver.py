@@ -79,4 +79,4 @@ def test_refined_solve_matches_jax(mode):
 def test_factorize_rejects_unknown_method():
     _, tsys, _ = _systems("TE")
     with pytest.raises(ValueError):
-        TS.factorize(tsys, method="bcr")
+        TS.factorize(tsys, method="mumps")

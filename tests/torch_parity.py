@@ -253,16 +253,16 @@ def median_pool_rank(device) -> dict:
     return dts
 
 
-def single_mode_freq_rank(device, arrays, m) -> dict:
+def single_mode_freq_rank(device, arrays, m, method: str = "thomas") -> dict:
     """One of two frequency ranks of a (1 chain x 2 freq) mesh: the summed
-    potential value and gradient of the survey in ``arrays`` (complex128
-    thomas), reduced over the freq group."""
+    potential value and gradient of the survey in ``arrays`` (complex128,
+    engine ``method``), reduced over the freq group."""
     torch.set_num_threads(1)
     from hmcmt2d_tpu_torch import convert
     from hmcmt2d_tpu_torch.models.forward import SolveConfig
     from hmcmt2d_tpu_torch.parallel.multichain import ShardedSampler, make_device_mesh
 
-    prob = convert.problem_from_arrays(arrays, SolveConfig(torch.complex128, 0, "thomas"),
+    prob = convert.problem_from_arrays(arrays, SolveConfig(torch.complex128, 0, method),
                                        device=device)
     ss = ShardedSampler(prob, 1.0, make_device_mesh(1, 2, device=device))
     mt = torch.as_tensor(m)
