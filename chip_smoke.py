@@ -23,6 +23,11 @@ Phases, each of which exits non-zero on failure:
    polish 0 and 1 against complex128 thomas on that operator; then all
    three, which are compiled per padded width, at the edges of their
    templates and at the end of G (random diagonally dominant systems);
+   and ``gj_inverse``, the engines' Gauss-Jordan inverse, at the blocks
+   they invert (one thomas line, B = 176, n = 95, in complex64 and
+   complex128; bcr's level 0, B = 176 x 32) with ``torch.linalg.inv`` as
+   its yardstick, and at n = 1, 2, 31, 32, 33, 64, 95, 96, 127, 128 in
+   both types;
 4. the main path: one batched potential value-and-grad of the flagship at
    full width, C = 8, on the fused kernels, with the launch counts of that
    run, held against the port's own complex128 thomas engine on the card;
@@ -51,21 +56,27 @@ Phases, each of which exits non-zero on failure:
    (b) the checkpoint tools on phase 7's run: ``summarize_checkpoint``,
    ``refresh_extend`` (launches counted against its fused evals), the
    summary of its checkpoint, and ``map_fit``;
-10. the block-cyclic-reduction engine of ``ops/solver.py`` (torch ops, as
-   XLA ops in the JAX package): (a) at the flagship (phase 4's models),
-   an unrefined complex64 factor-solve under thomas and bcr against the
-   complex128 solve, bcr's error within 10x thomas's; both refined 6
-   times and held to phase 4's limits against complex128 thomas, with
-   factor, solve and eval times, a profile, peak memory and no fused
-   launch; complex128 bcr within 1e-10 (gradient 1e-8); TF32 must be off;
-   (b) the GN build at the start model under thomas and bcr, measured the
-   same way: bcr's peak within 1 GB of thomas's, and one solve of its 128
-   right-hand sides sharing a bcr factor within the factor plus 10 copies
-   of the right-hand sides (a copy of the factor per right-hand side would
-   add ~25 GB); then ``hmcmt2d-torch run --warmup-solver thomas`` (the
-   JAX package's default) on phase 7's files cut shorter: warmup and the
-   GN build on thomas launch no fused kernel, then the fused kernels
-   (1, 14, 14) an eval;
+10. the other engines of ``ops/solver.py`` (torch ops, as XLA ops in the
+   JAX package; their inverses by LU or by ``gj_inverse``): (a) at the
+   flagship (phase 4's models), an unrefined complex64 factor-solve under
+   thomas, bcr and thomas_blocked, each with LU and with gj, against the
+   complex128 solve, each within 10x thomas+lu's; all six refined 6 times
+   and held to phase 4's limits against complex128 thomas, with factor,
+   solve and eval times, a profile, peak memory, no fused launch and
+   gj_inverse 55 times a factor and an eval under thomas(_blocked)+gj, 6
+   under bcr+gj, none under LU; complex128 bcr, thomas_blocked and bcr+gj
+   within 1e-10 (gradient 1e-8); TF32 must be off; (b) the GN build at
+   the start model under thomas and bcr, measured the same way: bcr's peak
+   within 1 GB of thomas's, and one solve of its 128 right-hand sides
+   sharing a bcr or a thomas_blocked factor within the factor plus 10
+   copies of the right-hand sides (a copy of the factor per right-hand
+   side would add ~25 GB); then ``hmcmt2d-torch run --warmup-solver
+   thomas`` (the JAX package's default) on phase 7's files cut shorter:
+   warmup and the GN build on thomas launch no fused kernel, then the
+   fused kernels (1, 14, 14) an eval; (c) ``hmcmt2d-torch --precision
+   f32 --refine 6 --solver fused --inv gj run`` on the same files: warmup
+   and the GN build on bcr+gj launch gj_inverse and no fused kernel, then
+   each eval (1, 14, 14) and no gj_inverse;
 6. a JSON summary of the kernels, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -89,6 +100,12 @@ SEED = 0
 FACTOR_REL_TOL = 1e-4  # f32 factor, other rounding order over 55 lines
 SWEEP_REL_TOL = 1e-5   # f32 sweeps given the same G
 POLISH_REL_TOL = 1e-5  # polished factor: its two products sum in another order
+# gj_inverse against its plain version (the same elimination order); the
+# two round each product alike, so this leaves room for the compiler's
+# contractions only
+GJ_REL_TOL = {"complex64": 1e-4, "complex128": 1e-10}
+# n at the edges of gj_inverse's width templates (qp = 32, 64, 96, 128)
+GJ_EDGE_N = (1, 2, 31, 32, 33, 64, 95, 96, 127, 128)
 U_REL_TOL = 1e-3       # fused complex64 vs complex128 potential (see phase 4)
 GRAD_COS_MIN = 0.999
 # (B, nzi, q): the coprod2 width, Q_MAX, more blocks than two waves, and
@@ -96,8 +113,11 @@ GRAD_COS_MIN = 0.999
 # past G)
 EDGE_SHAPES = ((4, 6, 75), (3, 4, 128), (300, 2, 32), (1, 1, 95), (3, 5, 75))
 
-# Published peaks (NVIDIA data sheets, dense, no sparsity): float32 on the
-# CUDA cores, and device-memory bandwidth, by the name torch reports.
+# Published peaks (NVIDIA data sheets, dense, no sparsity), by the name
+# torch reports: the arithmetic rate, and device-memory bandwidth.  The
+# rate is float32's on the CUDA cores, which on these parts equals float64's
+# best (its tensor-core rate: the CUDA cores give half), so one figure
+# bounds both the complex64 and the complex128 kernels.
 PEAKS = {
     "H100 PCIe": (51e12, 2.0e12),
     "H100 NVL": (60e12, 3.9e12),
@@ -183,7 +203,8 @@ def flagship_system(problem, m):
 
 
 def check_kernels(torch, problem, m, flops_peak, bw_peak):
-    """Phase 3: every kernel against its plain version at main-path shapes."""
+    """Phase 3: every kernel against its plain version at main-path shapes;
+    ``gj_inverse`` at the blocks the thomas and bcr engines invert."""
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
     from hmcmt2d_tpu_torch.ops import solver as S
 
@@ -255,12 +276,25 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
             bound_formula=f"max(8 q^2 {lines} B / fp32 peak, (G lines read + offz "
                           "+ rhs + out bytes) / bandwidth)")
 
-    for name, r in results.items():
+    gj = check_gj_inverse(torch, d, oy, oz)
+    results["gj_inverse"] = dict(gj.pop("complex64_thomas_line"), variants=gj)
+
+    for name, r in list(results.items()) + [("gj_inverse/" + k, v) for k, v in gj.items()]:
         t_ops = r["flops"] / flops_peak * 1e3
         t_bytes = r["bytes"] / bw_peak * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         r["share_of_bound"] = r["bound_ms"] / r["kernel_ms"]
+        if name.startswith("gj_inverse"):
+            say({"kernel": name, "batch": r["batch"], "n": r["n"], "dtype": r["dtype"],
+                 "max_rel_err": r["rel"], "max_abs_err": r["abs"], "rel_tol": r["tol"],
+                 "max_rel_err_vs_linalg_inv_complex128": r["rel_lu128"],
+                 "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "share_of_bound": r["share_of_bound"], "bound_formula": r["bound_formula"],
+                 "achieved_TFLOPs": r["flops"] / r["kernel_ms"] / 1e9,
+                 "library_ms": r["library_ms"], "library": r["library"]})
+            continue
         say({"kernel": name, "max_rel_err": r["rel"], "max_abs_err": r["abs"],
              "rel_tol": r["tol"], "kernel_ms": r["kernel_ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -271,7 +305,7 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
              "flops": r["flops"], "bytes": r["bytes"],
              "library_ms": r["library_ms"], "library": r["library"],
              "launches_per_eval": {"schur_factor": 1, "schur_factor_polish": 0}.get(name, 14)})
-    for name, r in results.items():
+    for name, r in list(results.items()) + [("gj_inverse/" + k, v) for k, v in gj.items()]:
         if not r["rel"] <= r["tol"]:
             fail(f"{name}: max relative error {r['rel']:.3e} > {r['tol']:.0e}")
     solve = results["schur_factor_polish"]["solve"]
@@ -279,7 +313,87 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
     if not solve["err_polish1"] <= solve["err_polish0"]:
         fail(f"polish = 1 solves worse than polish = 0: {solve}")
     check_edges(torch, d.device)
+    check_gj_edges(torch, d.device)
     return results
+
+
+def gj_case(torch, A, reps: int) -> dict:
+    """gj_inverse on the batch A (B, n, n) against its plain version, with
+    the kernel's, the plain version's and torch.linalg.inv's times."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+
+    B, n, _ = A.shape
+    X = FF.gj_inverse(A)
+    X_plain = FF.gj_inverse_nopivot(A)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(torch.view_as_real(X)).all()):
+        fail(f"gj_inverse produced non-finite values at {(B, n)} {A.dtype}")
+    abs_e, rel_e = rel_err(torch, X, X_plain)
+    _, rel_lu = rel_err(torch, X.to(torch.complex128),
+                        torch.linalg.inv(A.to(torch.complex128)))
+    del X, X_plain
+    dtype = str(A.dtype).removeprefix("torch.")
+    return dict(
+        batch=B, n=n, dtype=dtype, rel=rel_e, abs=abs_e, tol=GJ_REL_TOL[dtype],
+        rel_lu128=rel_lu,
+        kernel_ms=time_ms(torch, lambda: FF.gj_inverse(A), reps),
+        plain_ms=time_ms(torch, lambda: FF.gj_inverse_nopivot(A), 2),
+        library_ms=time_ms(torch, lambda: torch.linalg.inv(A), reps),
+        library="torch.linalg.inv (pivoted LU) on the same batch",
+        flops=8.0 * n ** 3 * B, bytes=2 * A.numel() * A.element_size(),
+        bound_formula="max(8 n^3 B / peak rate (fp32 CUDA cores, fp64 tensor "
+                      "cores), (A in + X out bytes) / bandwidth)")
+
+
+def check_gj_inverse(torch, d, oy, oz) -> dict:
+    """gj_inverse at the blocks the engines invert on the flagship: the
+    tridiagonal blocks of line 0 of the equilibrated system (B = 176, n =
+    95: one inverse of the thomas chain) in complex64 and complex128, and
+    bcr's level 0 (the even lines padded with identity blocks to 32 a
+    system, B = 176 x 32) in complex64."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    line = FF._dense_line(d[:, 0], oy[:, 0])
+    T = S._dense_blocks(d, oy)                              # (B, nzi, q, q)
+    B, nzi, q = d.shape
+    n_even = (2 ** nzi.bit_length()) // 2                   # bcr pads to 2^m - 1
+    eye = torch.eye(q, dtype=T.dtype, device=T.device)
+    even = T[:, 0::2]
+    level0 = torch.cat([even, eye.expand(B, n_even - even.shape[1], q, q)], dim=1)
+    cases = {"complex64_thomas_line": (line, 10),
+             "complex128_thomas_line": (line.to(torch.complex128), 10),
+             "complex64_bcr_level0": (level0.reshape(-1, q, q).contiguous(), 5)}
+    out = {}
+    for name, (A, reps) in cases.items():
+        out[name] = gj_case(torch, A, reps)
+        del A
+    del T, even, level0
+    return out
+
+
+def check_gj_edges(torch, dev):
+    """gj_inverse at the edges of its width templates in both types, on
+    random diagonally dominant matrices (B = 8)."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+
+    rows = []
+    for n in GJ_EDGE_N:
+        rng = np.random.default_rng(SEED + n)
+        A = (0.3 * (rng.standard_normal((8, n, n)) + 1j * rng.standard_normal((8, n, n)))
+             + (4.0 + 0.5j) * np.sqrt(n) * np.eye(n))
+        for dtype in (torch.complex64, torch.complex128):
+            At = torch.as_tensor(A, dtype=dtype, device=dev)
+            X = FF.gj_inverse(At)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(torch.view_as_real(X)).all())
+            _, rel = rel_err(torch, X, FF.gj_inverse_nopivot(At))
+            name = str(dtype).removeprefix("torch.")
+            rows.append([n, name, rel])
+            if not finite or not rel <= GJ_REL_TOL[name]:
+                fail(f"gj_inverse at n = {n} {name}: finite {finite}, relative error {rel:.3e}")
+    say({"gj_inverse_edges": rows, "rel_tol": GJ_REL_TOL,
+         "plans": {n: FF.gj_inverse_plan(n)._asdict() for n in (1, 33, 95, 128)}})
 
 
 def polish_solve_error(torch, d, oy, oz) -> dict:
@@ -1089,10 +1203,11 @@ def check_tools(torch, d: Path, smi, dev):
     return launches
 
 
-# phase 10
-ENGINES_C64 = ("thomas", "bcr")
-ENGINES_C128 = ("bcr",)
-EXACT_U_REL_TOL, EXACT_GRAD_REL_TOL = 1e-10, 1e-8   # complex128 bcr vs thomas
+# phase 10: (method, inv_method) of ops/solver.py factorize
+ENGINES_C64 = (("thomas", "lu"), ("bcr", "lu"), ("thomas", "gj"), ("bcr", "gj"),
+               ("thomas_blocked", "lu"), ("thomas_blocked", "gj"))
+ENGINES_C128 = (("bcr", "lu"), ("thomas_blocked", "lu"), ("bcr", "gj"))
+EXACT_U_REL_TOL, EXACT_GRAD_REL_TOL = 1e-10, 1e-8   # complex128 engines vs thomas
 # an unrefined complex64 solve of the flagship operator may be at most this
 # many times as far from the complex128 solve as the complex64 thomas one:
 # after 6 refinement steps every engine reads the same U, which would hide
@@ -1136,15 +1251,27 @@ def engine_problem(problem, cfg):
     return dataclasses.replace(problem, fwd=make_forward(problem.mesh, problem.fwd.data, cfg))
 
 
+def gj_per_factor(method: str, inv: str, nzi: int) -> int:
+    """gj_inverse launches of one factor: one a line for the thomas chain
+    (55 at the flagship), one a level for bcr (nzi pads to 2^m - 1 lines,
+    m levels: 6), none under LU."""
+    if inv != "gj":
+        return 0
+    return nzi.bit_length() if method == "bcr" else nzi
+
+
 def check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi):
-    """10a: the thomas and bcr engines of ops/solver.py on the flagship
-    (phase 4's models, B = 176): an unrefined complex64 factor-solve of the
-    interior system against the complex128 thomas solve, bcr's within
-    RAW_RATIO of thomas's; complex64 refined 6 times against phase 4's
-    complex128 thomas potential and gradient within phase 4's limits, with
-    factor, solve and eval times, a profile, the peak device memory and the
-    fused kernels' launches (none); complex128 bcr against complex128
-    thomas within 1e-10 / 1e-8."""
+    """10a: the engines of ops/solver.py (thomas, bcr, thomas_blocked, each
+    inverting by LU or by the gj_inverse kernel) on the flagship (phase 4's
+    models, B = 176): an unrefined complex64 factor-solve of the interior
+    system against the complex128 thomas solve, each within RAW_RATIO of
+    thomas+lu's; complex64 refined 6 times against phase 4's complex128
+    thomas potential and gradient within phase 4's limits, with factor,
+    solve and eval times, a profile, the peak device memory, no fused
+    launch and gj_per_factor gj_inverse launches a factor and an eval;
+    complex128 bcr, thomas_blocked and bcr+gj against complex128 thomas
+    within 1e-10 / 1e-8.  Returns the gj_inverse launches of one factor
+    and of one eval, by engine."""
     from hmcmt2d_tpu_torch.models.forward import SolveConfig
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
     from hmcmt2d_tpu_torch.ops import solver as S
@@ -1161,18 +1288,25 @@ def check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi):
     x_ref = S.factor_solve(S.factorize(S.InteriorSystem(
         sys_.diag.to(torch.complex128), sys_.offy.double(), sys_.offz.double())),
         b.to(torch.complex128))
-    for method in ENGINES_C64:
+    nzi = shape[-2]
+    gj_launches = {}
+    for method, inv in ENGINES_C64:
+        label = f"{method}+{inv}"
         t_engine = time.perf_counter()
 
-        def factor(method=method):
-            return S.factorize(sys_, dtype=torch.complex64, method=method)
+        def factor(method=method, inv=inv):
+            return S.factorize(sys_, dtype=torch.complex64, method=method, inv_method=inv)
 
         factor_ms = time_ms(torch, factor, 3)
+        torch.cuda.synchronize()
+        FF.reset_launches()
         fac = factor()
+        torch.cuda.synchronize()
+        per_factor = FF.launches()
         solve_ms = time_ms(torch, lambda fac=fac: S.factor_solve(fac, b), 5)
         _, raw = rel_err(torch, S.factor_solve(fac, b).to(torch.complex128), x_ref)
         del fac, factor
-        prob = engine_problem(problem, SolveConfig(torch.complex64, 6, method))
+        prob = engine_problem(problem, SolveConfig(torch.complex64, 6, method, inv))
         vg = make_potential_vg(prob, 1.0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1185,24 +1319,31 @@ def check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi):
         g64 = g.double()
         cos = float(((g64 * g_ref).sum(-1) / (g64.norm(dim=-1) * g_ref.norm(dim=-1))).min())
         finite = bool(torch.isfinite(U).all() and torch.isfinite(g).all())
-        rows.append({"phase": "10a", "engine": method, "dtype": "complex64",
+        # one factor an eval: the eval launches what the factor did
+        want_gj = gj_per_factor(method, inv, nzi)
+        want = dict(NO_LAUNCHES, **({"gj_inverse": want_gj} if want_gj else {}))
+        gj_launches[label] = {"factor": per_factor.get("gj_inverse", 0),
+                              "eval": counts.get("gj_inverse", 0)}
+        rows.append({"phase": "10a", "engine": method, "inv": inv, "dtype": "complex64",
                      "refine": 6, "card": smi, "factor_ms": factor_ms, "solve_ms": solve_ms,
                      "unrefined_rel_err": raw, "eval_ms": [],
                      "device_ms": prof["device_ms"], "device_kernels": prof["device_kernels"],
-                     "peak_gb": peak / 1e9, "fused_launches": counts,
-                     "U_max_rel_err": u_rel, "grad_min_cosine": cos, "finite": finite,
-                     "top": prof["top"], "seconds": time.perf_counter() - t_engine})
+                     "peak_gb": peak / 1e9, "launches_factor": per_factor,
+                     "launches_eval": counts, "U_max_rel_err": u_rel, "grad_min_cosine": cos,
+                     "finite": finite, "top": prof["top"],
+                     "seconds": time.perf_counter() - t_engine})
         vgs.append(vg)
-        if (counts != NO_LAUNCHES or not finite or not u_rel <= U_REL_TOL
-                or not cos >= GRAD_COS_MIN):
-            bad.append(f"{method}: launches {counts}, finite {finite}, "
-                       f"U {u_rel:.3e}, cosine {cos:.6f}")
+        if (per_factor != want or counts != want or not finite
+                or not u_rel <= U_REL_TOL or not cos >= GRAD_COS_MIN):
+            bad.append(f"{label}: launches a factor {per_factor}, an eval {counts} "
+                       f"(wanted {want}), finite {finite}, U {u_rel:.3e}, cosine {cos:.6f}")
         del prob, U, g
     del x_ref, b
-    raw = {row["engine"]: row["unrefined_rel_err"] for row in rows}
-    if not raw["bcr"] <= RAW_RATIO * raw["thomas"]:
-        bad.append(f"unrefined complex64 bcr solve {raw['bcr']:.3e} > {RAW_RATIO:g} x "
-                   f"thomas's {raw['thomas']:.3e}")
+    raw = {f"{row['engine']}+{row['inv']}": row["unrefined_rel_err"] for row in rows}
+    for label, err in raw.items():
+        if not err <= RAW_RATIO * raw["thomas+lu"]:
+            bad.append(f"unrefined complex64 {label} solve {err:.3e} > {RAW_RATIO:g} x "
+                       f"thomas+lu's {raw['thomas+lu']:.3e}")
     # the eval's wall time varies with the host by +-30%: time the engines
     # in turns, three rounds
     for _ in range(3):
@@ -1217,22 +1358,28 @@ def check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi):
         row["eval_ms_median"] = float(np.median(row["eval_ms"]))
         row["device_busy_share"] = row["device_ms"] / row["eval_ms_median"]
         say(row)
-    for method in ENGINES_C128:
-        prob = engine_problem(problem, SolveConfig(torch.complex128, 0, method))
+    for method, inv in ENGINES_C128:
+        prob = engine_problem(problem, SolveConfig(torch.complex128, 0, method, inv))
+        torch.cuda.synchronize()
+        FF.reset_launches()
         t0 = time.perf_counter()
         (U, _), g = make_potential_vg(prob, 1.0)(m.double(), m_ref.double())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = FF.launches()
         u_rel = float(((U - U_ref).abs() / U_ref.abs()).max())
         g_rel = float(((g - g_ref).norm(dim=-1) / g_ref.norm(dim=-1)).max())
-        say({"phase": "10a", "engine": method, "dtype": "complex128", "refine": 0,
-             "card": smi, "eval_ms": wall_ms, "U_max_rel_err": u_rel,
-             "grad_max_rel_norm_err": g_rel})
-        if not u_rel <= EXACT_U_REL_TOL or not g_rel <= EXACT_GRAD_REL_TOL:
-            bad.append(f"complex128 {method}: U {u_rel:.3e}, grad {g_rel:.3e}")
+        say({"phase": "10a", "engine": method, "inv": inv, "dtype": "complex128",
+             "refine": 0, "card": smi, "eval_ms": wall_ms, "launches_eval": counts,
+             "U_max_rel_err": u_rel, "grad_max_rel_norm_err": g_rel})
+        if (not u_rel <= EXACT_U_REL_TOL or not g_rel <= EXACT_GRAD_REL_TOL
+                or counts.get("gj_inverse", 0) != gj_per_factor(method, inv, nzi)):
+            bad.append(f"complex128 {method}+{inv}: U {u_rel:.3e}, grad {g_rel:.3e}, "
+                       f"launches {counts}")
         del prob, U, g
     if bad:
         fail("10a: " + "; ".join(bad))
+    return gj_launches
 
 
 def output_finite(d: Path, names) -> list[str]:
@@ -1291,41 +1438,18 @@ def gn_solve_bytes(torch, problem, m, method) -> dict:
             "rhs_bytes": b.numel() * b.element_size()}
 
 
-def check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s):
-    """10b: the GN build's memory under bcr and thomas, measured the same
-    way at the start model: the whole build within GN_MARGIN_BYTES of
-    thomas's, and one solve of its 128 right-hand sides sharing a bcr
-    factor within the factor plus SOLVE_RHS_COPIES right-hand sides.  Then
-    ``hmcmt2d-torch run --warmup-solver thomas`` on phase 7's files cut to
-    burn-in 4, ``masswarmup: 2`` and 4 samples: warmup and the GN build on
-    thomas (complex64, refine 3) launch no fused kernel, every fused eval
-    after the switch launches (1, 14, 14), and every output file is
-    finite."""
+def short_hybrid_run(torch, problem, m0, flags, run_flags) -> dict:
+    """``hmcmt2d-torch [flags] run ... [run_flags]`` on phase 7's files cut to
+    burn-in 4, ``masswarmup: 2`` and 4 samples, with the GN build
+    (``full_jacobian_chunked``) wrapped to read the launch counts and the
+    device memory around it.  Returns rc, the run's launches, its log, the
+    GN build's readings, the fused evals after the switch, the output
+    files missing or not finite, the checkpoint's finiteness and the main
+    accept rate."""
     import tempfile
 
     from hmcmt2d_tpu_torch.models import jacobian as JJ
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
-
-    m0_t = torch.as_tensor(m0, dtype=torch.float32, device=problem.device)
-    FF.reset_launches()
-    gn_peak = {meth: gn_peak_bytes(torch, problem, m0_t, meth) for meth in ("thomas", "bcr")}
-    solve = {meth: gn_solve_bytes(torch, problem, m0_t, meth) for meth in ("thomas", "bcr")}
-    gn_launches = FF.launches()
-    sb = solve["bcr"]
-    solve_limit = sb["factor_bytes"] + SOLVE_RHS_COPIES * sb["rhs_bytes"]
-    say({"phase": "10b", "gn_build_at_start_model": True, "card": smi,
-         "gn_peak_over_start_gb": {k: v / 1e9 for k, v in gn_peak.items()},
-         "gn_margin_gb": GN_MARGIN_BYTES / 1e9,
-         "solve_128_rhs": {k: {kk: vv / 1e9 for kk, vv in v.items()} for k, v in solve.items()},
-         "bcr_solve_limit_gb": solve_limit / 1e9, "launches": gn_launches})
-    if gn_launches != NO_LAUNCHES:
-        fail(f"10b: a GN build on thomas or bcr launched fused kernels: {gn_launches}")
-    if not gn_peak["bcr"] <= gn_peak["thomas"] + GN_MARGIN_BYTES:
-        fail(f"10b: the bcr GN build peaked {gn_peak['bcr'] / 1e9:.2f} GB over its start, "
-             f"thomas's {gn_peak['thomas'] / 1e9:.2f} GB + {GN_MARGIN_BYTES / 1e9:g} allowed")
-    if not sb["peak_bytes"] <= solve_limit:
-        fail(f"10b: one bcr solve of {GN_ROWS} right-hand sides peaked "
-             f"{sb['peak_bytes'] / 1e9:.2f} GB > {solve_limit / 1e9:.2f} GB")
 
     n_burn, n_mass, n_total = 4, 2, 10
     startup = (STARTUP.replace("burninsamples: 8", f"burninsamples: {n_burn}")
@@ -1352,8 +1476,8 @@ def check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s):
         JJ.full_jacobian_chunked = measured
         try:
             rc, launches, wall, log = cli_run(torch, [
-                "run", str(d / "startup"), "--outdir", str(d), "--checkpoint", str(ck),
-                "--checkpoint-every", "2", "--warmup-solver", "thomas"])
+                *flags, "run", str(d / "startup"), "--outdir", str(d), "--checkpoint",
+                str(ck), "--checkpoint-every", "2", *run_flags])
         finally:
             JJ.full_jacobian_chunked = full_jacobian
         names = output_names(8)
@@ -1363,23 +1487,114 @@ def check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s):
             lf = z["lf_steps"][:, 0].astype(int)
             finite = bool(np.isfinite(z["stats"]).all() and np.isfinite(z["models"]).all())
             acc = float(z["accepts"][n_burn + n_mass:].mean())
-    evals = 1 + int(lf[n_burn:n_total].sum())
+    return {"rc": rc, "launches": launches, "wall": wall, "log": log, "gn": gn,
+            "evals": 1 + int(lf[n_burn:n_total].sum()), "lf": lf, "missing": missing,
+            "nonfinite": nonfinite, "finite": finite, "acc": acc}
+
+
+def run_summary(run: dict, phase7_s) -> dict:
+    gn = run["gn"]
+    return {"rc": run["rc"], "wall_s": run["wall"], "phase_s": phase_seconds(run["log"]),
+            "phase7_phase_s": phase7_s, "fused_evals": run["evals"],
+            "launches": run["launches"], "gn_build": gn,
+            "gn_peak_over_start_gb": (gn["peak_bytes"] - gn["base_bytes"]) / 1e9
+            if "peak_bytes" in gn else None,
+            "main_accept_rate": run["acc"], "leapfrog_steps": run["lf"].tolist()}
+
+
+def check_outputs(tag: str, run: dict) -> None:
+    if run["missing"] or run["nonfinite"] or not run["finite"]:
+        fail(f"{tag}: missing {run['missing']}, non-finite files {run['nonfinite']}, "
+             f"checkpoint finite {run['finite']}")
+
+
+def fused_only(counts: dict) -> dict:
+    return {k: counts.get(k, 0) for k in NO_LAUNCHES}
+
+
+def check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s):
+    """10b: the GN build's memory under bcr and thomas, measured the same
+    way at the start model: the whole build within GN_MARGIN_BYTES of
+    thomas's, and one solve of its 128 right-hand sides sharing a bcr or a
+    thomas_blocked factor within the factor plus SOLVE_RHS_COPIES
+    right-hand sides.  Then ``hmcmt2d-torch run --warmup-solver thomas``
+    (``short_hybrid_run``): warmup and the GN build on thomas (complex64,
+    refine 3) launch no fused kernel, every fused eval after the switch
+    launches (1, 14, 14), and every output file is finite."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+
+    m0_t = torch.as_tensor(m0, dtype=torch.float32, device=problem.device)
+    FF.reset_launches()
+    gn_peak = {meth: gn_peak_bytes(torch, problem, m0_t, meth) for meth in ("thomas", "bcr")}
+    solve = {meth: gn_solve_bytes(torch, problem, m0_t, meth)
+             for meth in ("thomas", "bcr", "thomas_blocked")}
+    gn_launches = FF.launches()
+    limits = {k: solve[k]["factor_bytes"] + SOLVE_RHS_COPIES * solve[k]["rhs_bytes"]
+              for k in ("bcr", "thomas_blocked")}
+    say({"phase": "10b", "gn_build_at_start_model": True, "card": smi,
+         "gn_peak_over_start_gb": {k: v / 1e9 for k, v in gn_peak.items()},
+         "gn_margin_gb": GN_MARGIN_BYTES / 1e9,
+         "solve_128_rhs": {k: {kk: vv / 1e9 for kk, vv in v.items()} for k, v in solve.items()},
+         "solve_limit_gb": {k: v / 1e9 for k, v in limits.items()}, "launches": gn_launches})
+    if gn_launches != NO_LAUNCHES:
+        fail(f"10b: a GN build on thomas or bcr launched fused kernels: {gn_launches}")
+    if not gn_peak["bcr"] <= gn_peak["thomas"] + GN_MARGIN_BYTES:
+        fail(f"10b: the bcr GN build peaked {gn_peak['bcr'] / 1e9:.2f} GB over its start, "
+             f"thomas's {gn_peak['thomas'] / 1e9:.2f} GB + {GN_MARGIN_BYTES / 1e9:g} allowed")
+    for k, limit in limits.items():
+        if not solve[k]["peak_bytes"] <= limit:
+            fail(f"10b: one {k} solve of {GN_ROWS} right-hand sides peaked "
+                 f"{solve[k]['peak_bytes'] / 1e9:.2f} GB > {limit / 1e9:.2f} GB")
+
+    run = short_hybrid_run(torch, problem, m0, [], ["--warmup-solver", "thomas"])
+    evals, gn = run["evals"], run["gn"]
     want = {"schur_factor": evals, "bt_sweep_fwd": 14 * evals, "bt_sweep_bwd": 14 * evals}
-    switch = "hybrid: warmup engine thomas -> main engine fused" in log
+    switch = "hybrid: warmup engine thomas -> main engine fused" in run["log"]
     say({"phase": "10b", "cli_run": "hmcmt2d-torch run --warmup-solver thomas", "card": smi,
-         "rc": rc, "wall_s": wall, "phase_s": phase_seconds(log), "phase7_phase_s": phase7_s,
-         "switch_logged": switch, "fused_evals": evals, "launches": launches,
-         "gn_build": gn, "gn_peak_over_start_gb": (gn["peak_bytes"] - gn["base_bytes"]) / 1e9
-         if "peak_bytes" in gn else None,
-         "main_accept_rate": acc, "leapfrog_steps": lf.tolist()})
-    if rc != 0 or not switch:
-        fail(f"10b: rc {rc}, engine switch logged {switch}")
-    if missing or nonfinite or not finite:
-        fail(f"10b: missing {missing}, non-finite files {nonfinite}, checkpoint finite {finite}")
+         "switch_logged": switch, **run_summary(run, phase7_s)})
+    if run["rc"] != 0 or not switch:
+        fail(f"10b: rc {run['rc']}, engine switch logged {switch}")
+    check_outputs("10b", run)
     if "peak_bytes" not in gn or gn["launches_after"] != NO_LAUNCHES:
         fail(f"10b: the GN build did not run, or warmup and GN launched fused kernels: {gn}")
-    if launches != want:
-        fail(f"10b: launches {launches} != {want} for {evals} fused evals")
+    if run["launches"] != want:
+        fail(f"10b: launches {run['launches']} != {want} for {evals} fused evals")
+
+
+GJ_CLI_FLAGS = ["--precision", "f32", "--refine", "6", "--solver", "fused", "--inv", "gj"]
+
+
+def check_gj_cli(torch, problem, m0, smi, phase7_s) -> dict:
+    """10c: ``hmcmt2d-torch --precision f32 --refine 6 --solver fused --inv
+    gj run`` (``short_hybrid_run``): warmup (bcr+gj, the auto warmup engine
+    with the run's inverse) and the GN build launch gj_inverse, a whole
+    number of bcr factors' worth, and no fused kernel; after the switch
+    each fused eval launches (1, 14, 14) and no gj_inverse.  Returns the
+    run's launches."""
+    nzi = problem.mesh.nz - 1                # interior z-lines of the solve
+    per_factor = gj_per_factor("bcr", "gj", nzi)
+    run = short_hybrid_run(torch, problem, m0, GJ_CLI_FLAGS, [])
+    evals, gn = run["evals"], run["gn"]
+    switch = "hybrid: warmup engine bcr -> main engine fused" in run["log"]
+    say({"phase": "10c", "cli_run": "hmcmt2d-torch " + " ".join(GJ_CLI_FLAGS) + " run",
+         "card": smi, "switch_logged": switch, "gj_inverse_per_bcr_factor": per_factor,
+         **run_summary(run, phase7_s)})
+    if run["rc"] != 0 or not switch or "inv=gj" not in run["log"]:
+        fail(f"10c: rc {run['rc']}, engine switch logged {switch}, inv=gj logged "
+             f"{'inv=gj' in run['log']}")
+    check_outputs("10c", run)
+    if "peak_bytes" not in gn:
+        fail("10c: the GN build did not run")
+    before, after = (gn[k].get("gj_inverse", 0) for k in ("launches_before", "launches_after"))
+    fused = {"schur_factor": evals, "bt_sweep_fwd": 14 * evals, "bt_sweep_bwd": 14 * evals}
+    if (fused_only(gn["launches_after"]) != NO_LAUNCHES or not 0 < before < after
+            or before % per_factor or after % per_factor):
+        fail(f"10c: warmup and GN launches {gn}: want gj_inverse in multiples of "
+             f"{per_factor} in both, and no fused kernel")
+    if fused_only(run["launches"]) != fused or run["launches"].get("gj_inverse", 0) != after:
+        fail(f"10c: launches {run['launches']}: want {fused} and gj_inverse {after} (none "
+             f"after the switch) for {evals} fused evals")
+    return run["launches"]
 
 
 # ``--warmup-engines [N]``: the hybrid run's warmup engines at the production
@@ -1468,7 +1683,7 @@ def main() -> None:
     flops_peak, bw_peak, peak_key = peaks(name)
     say(f"[card] {smi}")
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; TF32 off "
-        f"(matmul and cudnn); peaks for {peak_key}: fp32 {flops_peak / 1e12:g} "
+        f"(matmul and cudnn); peaks for {peak_key}: fp32 and fp64 {flops_peak / 1e12:g} "
         f"TFLOP/s, {bw_peak / 1e12:g} TB/s")
 
     from hmcmt2d_tpu_torch.models.forward import SolveConfig, make_forward
@@ -1594,10 +1809,12 @@ def main() -> None:
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
-    # phase 10: thomas and bcr, their GN builds, and a run warmed up on thomas
-    check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi)
+    # phase 10: the engines, their GN builds, a run warmed up on thomas, and
+    # a run under --inv gj
+    gj_engine_launches = check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi)
     del U_ref, g_ref
     check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s)
+    gj_run_launches = check_gj_cli(torch, problem, m0, smi, phase7_s)
 
     # phase 6
     replaces = {
@@ -1605,12 +1822,14 @@ def main() -> None:
         "schur_factor_polish": "hmcmt2d_tpu/ops/pallas_factor.py:120",
         "bt_sweep_fwd": "hmcmt2d_tpu/ops/pallas_factor.py:357",
         "bt_sweep_bwd": "hmcmt2d_tpu/ops/pallas_factor.py:383",
+        "gj_inverse": "hmcmt2d_tpu/ops/blockinv.py:41 (inv_nopivot, XLA ops)",
     }
     source = {
         "schur_factor": "hmcmt2d_tpu_torch/csrc/schur_factor.cu",
         "schur_factor_polish": "hmcmt2d_tpu_torch/csrc/schur_factor.cu",
         "bt_sweep_fwd": "hmcmt2d_tpu_torch/csrc/bt_sweep_fwd.cu",
         "bt_sweep_bwd": "hmcmt2d_tpu_torch/csrc/bt_sweep_bwd.cu",
+        "gj_inverse": "hmcmt2d_tpu_torch/csrc/gj_inverse.cu",
     }
     kernels = []
     for k, r in kres.items():
@@ -1624,6 +1843,18 @@ def main() -> None:
             # of the phase-3 polished factor-solve, counted from 0
             entry.update(launches=r["solve"]["launches_polish1"][k],
                          launches_path="phase 3: polish = 1 factor-solve of the flagship")
+        elif k == "gj_inverse":
+            # not on the fused main path (0 launches there): the engines'
+            # inverse under --inv gj; its launches are those of 10c's run
+            entry.update(
+                launches=gj_run_launches["gj_inverse"],
+                launches_path="phase 10c: hmcmt2d-torch " + " ".join(GJ_CLI_FLAGS) + " run",
+                launches_main_path=counts.get(k, 0),
+                launches_per_factor_and_eval=gj_engine_launches,
+                variants={v: {kk: r2[kk] for kk in ("batch", "n", "dtype", "abs", "rel",
+                                                    "kernel_ms", "plain_ms", "bound_ms",
+                                                    "share_of_bound", "library_ms")}
+                          for v, r2 in r["variants"].items()})
         else:
             entry.update(launches=counts[k],
                          launches_cli_run=[c[k] for c in run_launches],

@@ -37,19 +37,9 @@ def _device(args) -> torch.device:
     return dev
 
 
-# engines of the JAX package that the port leaves out (ROADMAP, "Not to
-# port"): a JAX command line naming one parses, and is refused with the
-# engine to use instead
-NOT_PORTED = {"thomas_blocked": "--solver bcr", "gj": "--inv lu"}
-
-
 def _solve_cfg(args, device: torch.device):
     from .models.forward import SolveConfig, default_config
 
-    for name in (args.solver, args.inv):
-        if name in NOT_PORTED:
-            raise SystemExit(f"{name} is a JAX engine the port leaves out (slower "
-                             f"than its alternative on the H100): use {NOT_PORTED[name]}")
     if args.precision == "auto":
         cfg = default_config(device)
     elif args.precision == "f64":
@@ -58,6 +48,8 @@ def _solve_cfg(args, device: torch.device):
         cfg = SolveConfig(torch.complex64, args.refine)
     if args.solver != "auto":
         cfg = dataclasses.replace(cfg, solver_method=args.solver)
+    if args.inv != "auto":
+        cfg = dataclasses.replace(cfg, inv_method=args.inv)
     if cfg.solver_method == "fused":
         # the kernels factor in complex64, so an f64 request cannot be
         # honoured, and refine_iters = 0 would return raw complex64 factor
@@ -154,6 +146,7 @@ def cmd_run(args):
         name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
         _say(f"device={dev} ({name}) chains={cfg.n_chains} "
              f"samples={cfg.total_samples} solve={solve_cfg.solver_method} "
+             f"inv={solve_cfg.inv_method} "
              f"{str(solve_cfg.solve_dtype).removeprefix('torch.')}")
         dev_mesh = _device_mesh(args, cfg, data, dev)
         if joined is not None and dev_mesh is None:
@@ -252,12 +245,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--refine", type=int, default=1,
                     help="iterative-refinement steps for f32 solves")
     ap.add_argument("--solver", default="auto",
-                    choices=["auto", "thomas", "bcr", "fused", "thomas_blocked"],
-                    help="factorisation engine (fused = the CUDA kernels; "
-                         "thomas_blocked, a JAX engine, is refused)")
+                    choices=["auto", "thomas", "thomas_blocked", "bcr", "fused"],
+                    help="factorisation engine (fused = the CUDA kernels)")
     ap.add_argument("--inv", default="auto", choices=["auto", "lu", "gj"],
-                    help="batched inverse of thomas and bcr: LU "
-                         "(torch.linalg.inv); gj, a JAX engine, is refused")
+                    help="batched inverse of thomas, thomas_blocked and bcr: "
+                         "lu (torch.linalg.inv; auto) or gj (unpivoted "
+                         "Gauss-Jordan, the gj_inverse kernel on the GPU)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     runp = sub.add_parser("run", help="run the HMC inversion")

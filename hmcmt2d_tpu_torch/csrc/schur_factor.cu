@@ -28,7 +28,8 @@
 // Design.  The first version (15.8 ms at the flagship on an H100 SXM) kept
 // S in shared memory: every update read and wrote S there, capping it near
 // 1/6 of the fp32 rate, with two barriers per pivot step and G_{j-1} read
-// back from global memory.  Here S lives in registers: row r belongs to warp
+// back from global memory.  Here S lives in registers (the elimination of
+// csrc/gj_core.cuh, shared with gj_inverse.cu): row r belongs to warp
 // r % 16 and column c to lane c % 32, so each of the 512 threads holds an
 // RT x CT complex tile (6 x 3 at q = 95), indexed only by unrolled constant
 // loops.  Only the pivot row (scaled by 1/pivot) and the pivot column go
@@ -69,90 +70,13 @@
 
 #include <cuda_runtime.h>
 #include "cplx.cuh"
+#include "gj_core.cuh"
 
 namespace {
 
-constexpr int TX = 32;   // lanes: column c = lane + TX * cc
-constexpr int TY = 16;   // warps: row r = warp + TY * i
-constexpr int THREADS = TX * TY;
-constexpr unsigned FULL = 0xffffffffu;
-
-// The row of pivot step k, held by warp k % TY (row: its tile row, after
-// the step's update): write it scaled by 1/pivot into rowk, entry k being
-// 1/pivot itself.
-template <int CT>
-__device__ __forceinline__ void publish_row(const float2 (&row)[CT], int k,
-                                            float2* rowk, int lane, int q) {
-  const int kc = k / TX;
-  float2 d = row[0];
-#pragma unroll
-  for (int cc = 1; cc < CT; ++cc) d = (cc == kc) ? row[cc] : d;
-  d.x = __shfl_sync(FULL, d.x, k % TX);
-  d.y = __shfl_sync(FULL, d.y, k % TX);
-  const float2 p = crcp(d);
-#pragma unroll
-  for (int cc = 0; cc < CT; ++cc) {
-    const int c = lane + TX * cc;
-    if (c < q) rowk[c] = (c == k) ? p : cmul(row[cc], p);
-  }
-}
-
-// The column of pivot step k, held by lane k % TX of every warp: write it
-// into colk, entry k being -1, and clear it in registers.
-template <int RT, int CT>
-__device__ __forceinline__ void publish_col(float2 (&S)[RT][CT], int k,
-                                            float2* colk, int lane, int warp,
-                                            int q) {
-#pragma unroll
-  for (int cc = 0; cc < CT; ++cc)
-    if (cc == k / TX) {
-      if (lane == k % TX) {
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          const int r = warp + TY * i;
-          if (r < q) colk[r] = (r == k) ? make_float2(-1.f, 0.f) : S[i][cc];
-          S[i][cc] = make_float2(0.f, 0.f);
-        }
-      }
-    }
-}
-
-// Publish pivot step k into the pivot buffers and clear row and column k in
-// registers.  With row and column k cleared, the step is one rank-1 update
-// S - column * row for every entry: row k becomes the scaled row, column k
-// becomes -column / pivot, and entry (k, k) becomes 1/pivot, as in
-// gj_inverse_nopivot.  Every branch on k is uniform across a warp except
-// the lane test of the column.
-template <int RT, int CT>
-__device__ __forceinline__ void publish(float2 (&S)[RT][CT], int k,
-                                        float2* rowk, float2* colk,
-                                        int lane, int warp, int q) {
-  const int ki = k / TY;
-  if (warp == k % TY) {
-    float2 row[CT];
-#pragma unroll
-    for (int cc = 0; cc < CT; ++cc) {
-      row[cc] = S[0][cc];
-#pragma unroll
-      for (int i = 1; i < RT; ++i) row[cc] = (i == ki) ? S[i][cc] : row[cc];
-    }
-    publish_row(row, k, rowk, lane, q);
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-      if (i == ki) {
-#pragma unroll
-        for (int cc = 0; cc < CT; ++cc) S[i][cc] = make_float2(0.f, 0.f);
-      }
-  }
-  publish_col(S, k, colk, lane, warp, q);
-}
-
-// s - a * b with the product rounded first, as the plain version's
-// A - col * row
-__device__ __forceinline__ float2 upd(float2 s, float2 a, float2 b) {
-  const float2 t = cmul(a, b);
-  return make_float2(s.x - t.x, s.y - t.y);
-}
+using gj::THREADS;
+using gj::TX;
+using gj::TY;
 
 // One Newton-Schulz step on line j: G_j <- G_j + G_j (I - S_j G_j), with
 // G_j stored in Gj (and in S, which it overwrites) and S_j rebuilt in Ssh
@@ -323,27 +247,8 @@ schur_factor_kernel(const float2* __restrict__ diag,  // (B, nzi, q)
         S[i][cc] = t;
       }
     }
-    publish(S, 0, rowk, colk, lane, warp, q);
-    __syncthreads();
-
     // in-place Gauss-Jordan inverse, no pivoting; one barrier per step
-    for (int k = 0; k < q; ++k) {
-      const float2* rk = rowk + (k & 1) * QP;
-      const float2* ck = colk + (k & 1) * QP;
-      float2 rw[CT];
-#pragma unroll
-      for (int cc = 0; cc < CT; ++cc) rw[cc] = rk[lane + TX * cc];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const float2 a = ck[warp + TY * i];
-#pragma unroll
-        for (int cc = 0; cc < CT; ++cc) S[i][cc] = upd(S[i][cc], a, rw[cc]);
-      }
-      if (k + 1 < q)
-        publish(S, k + 1, rowk + ((k + 1) & 1) * QP, colk + ((k + 1) & 1) * QP,
-                lane, warp, q);
-      __syncthreads();
-    }
+    gj::invert(S, rowk, colk, lane, warp, q);
 
     float2* Gj = G_b + (size_t)j * qq;
 #pragma unroll

@@ -38,10 +38,14 @@ class SolveConfig:
     """Precision policy for the PDE solves.
 
     ``solver_method`` is ``"thomas"`` (block Thomas, exact in complex128),
-    ``"bcr"`` (block cyclic reduction) or ``"fused"`` (the CUDA kernels of
+    ``"thomas_blocked"`` (block Thomas with grouped sweeps), ``"bcr"``
+    (block cyclic reduction) or ``"fused"`` (the CUDA kernels of
     ops/fused_factor.py on complex64 factors), with ``refine_iters`` steps
     of iterative refinement.  Unlike the JAX package, whose field default
     is ``"bcr"``, the default engine here is ``"thomas"``.
+    ``inv_method`` is the batched inverse inside thomas, thomas_blocked and
+    bcr: ``"lu"`` (``torch.linalg.inv``) or ``"gj"`` (unpivoted
+    Gauss-Jordan, the ``gj_inverse`` kernel on the GPU; ops/fused_factor.py).
     ``stale_refine_iters`` refinement steps serve a solve with a stale
     (trajectory-amortised) factor, see :func:`solve_dirichlet`.
     """
@@ -49,6 +53,7 @@ class SolveConfig:
     solve_dtype: torch.dtype = torch.complex128
     refine_iters: int = 0
     solver_method: str = "thomas"
+    inv_method: str = "lu"
     # sized so the worst measured contraction (~0.45 a step at an 8-step
     # leapfrog drift) still reaches ~1e-4 relative, and refactoring every
     # ~4 steps ~1e-7 (hmcmt2d_tpu/models/forward.py:67-71)
@@ -259,7 +264,8 @@ def interior_solve(diag, offy, offz, rhs, cfg: SolveConfig,
     if fac is None:
         with torch.no_grad():
             fac = S.factorize(S.InteriorSystem(diag.detach(), offy.detach(), offz.detach()),
-                              dtype=cfg.solve_dtype, method=cfg.solver_method)
+                              dtype=cfg.solve_dtype, method=cfg.solver_method,
+                              inv_method=cfg.inv_method)
         iters = cfg.refine_iters
     else:
         iters = cfg.stale_refine_iters
@@ -427,7 +433,8 @@ class ForwardOperator:
         sys = S.interior_system(_cast_stencil(st, rdt), om,
                                 dtype=self.cfg.solve_dtype)
         return S.factorize(sys, dtype=self.cfg.solve_dtype,
-                           method=self.cfg.solver_method)
+                           method=self.cfg.solver_method,
+                           inv_method=self.cfg.inv_method)
 
     def both_mode_solutions(self, sigma2d: torch.Tensor, freqs=None,
                             fac: S.Factorization | None = None):

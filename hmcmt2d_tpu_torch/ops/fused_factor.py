@@ -18,17 +18,24 @@ kernel (csrc)      replaces (hmcmt2d_tpu/ops/pallas_factor.py)      bound
 schur_factor       ``_factor_kernel`` :137-194, polish :113-134     operations
 bt_sweep_fwd       ``_sweep_fwd_kernel`` :357-380                   bytes
 bt_sweep_bwd       ``_sweep_bwd_kernel`` :383-408                   bytes
+gj_inverse         ``inv_nopivot`` (XLA ops), ops/blockinv.py:41    operations
 =================  ==============================================  ==========
+
+``gj_inverse`` is not on the fused path: it is the batched inverse of the
+thomas, thomas_blocked and bcr engines under ``inv_method="gj"``
+(``ops/solver.py``), on the CPU as on the GPU.
 
 The TPU layout (split real/imaginary planes, q padded to 128, q-tight
 rows) existed because Pallas on a TPU has no complex type and tiles by
-(8, 128).  The kernels here take complex64 tensors as interleaved float2:
-G is (B, nzi, q, q) complex64, C-contiguous, one system per thread block.
+(8, 128).  The kernels here take complex64 tensors as interleaved float2
+(``gj_inverse`` also complex128, as double2): G is (B, nzi, q, q)
+complex64, C-contiguous, one system (or matrix) per thread block.
 The source notes in ``csrc/*.cu`` (``schur_factor.cu``, ``bt_sweep_fwd.cu``,
-``bt_sweep_bwd.cu``) say what bounds each kernel on the card and what its
-design does about it.  Each kernel is compiled for a few padded widths; its
-launch plan (:func:`schur_factor_plan`, :func:`bt_sweep_fwd_plan`,
-:func:`bt_sweep_bwd_plan`) picks the variant, threads, shared memory and
+``bt_sweep_bwd.cu``, ``gj_inverse.cu``) say what bounds each kernel on the
+card and what its design does about it.  Each kernel is compiled for a few
+padded widths; its launch plan (:func:`schur_factor_plan`,
+:func:`bt_sweep_fwd_plan`, :func:`bt_sweep_bwd_plan`,
+:func:`gj_inverse_plan`) picks the variant, threads, shared memory and
 ring depth for a given q, and the C entry points refuse a plan they were
 not compiled for.
 """
@@ -317,21 +324,80 @@ def bt_sweep_bwd(G: torch.Tensor, offz: torch.Tensor,
 bt_sweep_fwd.launches = 0
 bt_sweep_bwd.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# gj_inverse
+# ---------------------------------------------------------------------------
+
+GJ_DTYPES = (torch.complex64, torch.complex128)
+
+
+def gj_inverse_plan(n: int, dtype: torch.dtype = torch.complex64) -> LaunchPlan:
+    """Plan of ``csrc/gj_inverse.cu``: schur_factor's thread tile (row r on
+    warp r % 16, column c on lane c % 32, an (qp/16, qp/32) tile a thread)
+    for n x n matrices in ``dtype``, complex64 or complex128; shared memory
+    holds the double-buffered pivot row and column (4 qp complex).  Two
+    blocks an SM up to qp = 96 in complex64 and qp = 64 in complex128 (at
+    most 64 registers a thread), else one.  The C entry point refuses
+    another plan."""
+    if dtype not in GJ_DTYPES:
+        raise ValueError(f"gj_inverse takes complex64 or complex128, got {dtype}")
+    qp = _padded(n)
+    two = qp <= (96 if dtype == torch.complex64 else 64)
+    return LaunchPlan(n, qp, (LANES, WARPS), (qp // WARPS, qp // LANES),
+                      4 * qp * dtype.itemsize, 0, 2 if two else 1)
+
+
+def gj_inverse(A: torch.Tensor) -> torch.Tensor:
+    """Batched unpivoted Gauss-Jordan inverse of A (..., n, n), complex64
+    or complex128, 1 <= n <= Q_MAX: one launch of the CUDA kernel for a
+    CUDA tensor, the batch axes collapsed to one (as the JAX package's
+    ``inv_c``); :func:`gj_inverse_nopivot` for a CPU tensor.
+
+    No pivoting: stable only where every leading block keeps a nonzero
+    pivot, as on the equilibrated MT operator (real part positive
+    definite), which ``ops/solver.py::factorize`` always builds before it
+    inverts a block.  A general matrix may need a pivot this never takes."""
+    if _on_cpu(A):
+        return gj_inverse_nopivot(A)
+    if A.ndim < 2 or A.shape[-2] != A.shape[-1]:
+        raise ValueError(f"gj_inverse takes square matrices, got {tuple(A.shape)}")
+    n = A.shape[-1]
+    plan = gj_inverse_plan(n, A.dtype)
+    lib = kernel_build.library()
+    flat = A.reshape((-1, n, n)).resolve_conj().resolve_neg().contiguous()
+    _check(flat, "A", A.dtype, flat.shape, A.device)
+    X = torch.empty_like(flat)
+    err = lib.hmc_gj_inverse(flat.data_ptr(), X.data_ptr(), flat.shape[0], n,
+                             plan.qp, plan.n_threads, plan.smem_bytes,
+                             int(A.dtype == torch.complex128), _stream())
+    _raise_on(err, "gj_inverse")
+    gj_inverse.launches += 1
+    return X.reshape(A.shape)
+
+
+gj_inverse.launches = 0
+
 KERNELS = (schur_factor, bt_sweep_fwd, bt_sweep_bwd)
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in KERNELS + (gj_inverse,):
         k.launches = 0
     schur_factor.polish_launches = 0
 
 
 def launches() -> dict[str, int]:
-    """Launches of each kernel since the last :func:`reset_launches`; the
-    factor's polish variant counts apart (``schur_factor_polish``)."""
+    """Launches of each fused-path kernel since the last
+    :func:`reset_launches`; the factor's polish variant
+    (``schur_factor_polish``) and the engines' ``gj_inverse`` count apart,
+    and appear only when nonzero, so the fused path's dict keeps its three
+    keys."""
     out = {k.__name__: k.launches for k in KERNELS}
     if schur_factor.polish_launches:
         out["schur_factor_polish"] = schur_factor.polish_launches
+    if gj_inverse.launches:
+        out["gj_inverse"] = gj_inverse.launches
     return out
 
 

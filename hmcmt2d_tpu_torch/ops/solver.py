@@ -6,18 +6,24 @@ diagonal blocks are tridiagonal (y-coupling) and the off-diagonal blocks
 diagonal (z-coupling).  A factorisation is computed once and serves the
 forward and the adjoint solve, since the operator is complex-symmetric.
 
-Three engines (``factorize(method=...)``):
+Four engines (``factorize(method=...)``):
 
 * ``"thomas"``: block-Thomas elimination, the Schur chain of per-line
   inverses, in the system's dtype (complex128 on the CPU: exact to
   rounding);
+* ``"thomas_blocked"``: the thomas factor with the within-group prefix
+  products of its recurrences, so each triangular sweep takes about
+  g + nzi/g sequential steps (groups of g = 8 lines) instead of nzi;
 * ``"bcr"``: block cyclic reduction, ceil(log2(nzi + 1)) rounds of batched
   inverses and matrix products;
 * ``"fused"``: the hand-written CUDA kernels of :mod:`.fused_factor` on a
   complex64 factor, with iterative refinement against the matrix-free
   operator (the production setting on the GPU).
 
-thomas and bcr invert their blocks with ``torch.linalg.inv`` (pivoted LU).
+thomas, thomas_blocked and bcr invert their blocks with LU
+(``torch.linalg.inv``, ``inv_method="lu"``) or by unpivoted Gauss-Jordan
+(``inv_method="gj"``: :func:`.fused_factor.gj_inverse`, the CUDA kernel on
+the GPU and its plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from .. import mesh as M
-from .fused_factor import FusedFactor, fused_bt_solve, fused_schur_factor
+from .fused_factor import FusedFactor, fused_bt_solve, fused_schur_factor, gj_inverse
 
 REAL_DTYPE = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
@@ -93,7 +99,8 @@ def _dense_blocks(diag: torch.Tensor, offy: torch.Tensor) -> torch.Tensor:
 
 
 def bt_factor(sys: InteriorSystem, inv_fn=torch.linalg.inv) -> BTFactor:
-    """G_0 = inv(T_0), G_j = inv(T_j - C_{j-1} G_{j-1} C_{j-1})."""
+    """G_0 = inv(T_0), G_j = inv(T_j - C_{j-1} G_{j-1} C_{j-1}); ``inv_fn``
+    is the batched inverse (LU, or :func:`.fused_factor.gj_inverse`)."""
     diag, offy, offz = sys
     T = _dense_blocks(diag, offy)
     batch = torch.broadcast_shapes(T.shape[:-3], offz.shape[:-2])
@@ -152,6 +159,116 @@ def bt_solve(fac: BTFactor, b: torch.Tensor) -> torch.Tensor:
     return restore(torch.stack(xs[::-1], dim=-3))
 
 
+class BTFactorBlocked(NamedTuple):
+    """Block-Thomas factorisation with the grouped sweeps' prefix products.
+
+    The forward sweep is the affine recurrence y_j = u_j + H_j y_{j-1}
+    (u_j = G_j b_j, H_j = G_j diag(c_{j-1})), the backward one
+    x_j = y_j + H~_j x_{j+1} (H~_j = G_j diag(c_j)).  Lines are grouped
+    in blocks of g; the products of the H within each group are taken at
+    factor time, so a sweep is (A) the g in-group steps with no incoming
+    carry, all groups batched, (B) the nzi/g carries across groups, and
+    (C) one batched fix-up.  ``Qb`` is in line order (JAX stores it
+    reversed), so the backward sweep slices G and Qb as they lie and
+    copies neither."""
+
+    G: torch.Tensor      # (..., N, q, q) padded inverse Schur complements
+    offz: torch.Tensor   # (..., nzi-1, q) original couplings
+    cf: torch.Tensor     # (..., N, q) forward coupling c_{j-1} (0 at j=0 / pad)
+    cb: torch.Tensor     # (..., N, q) backward coupling c_j (0 at j=nzi-1 / pad)
+    Qf: torch.Tensor     # (..., N, q, q) H_j ... H_{first line of j's group}
+    Qb: torch.Tensor     # (..., N, q, q) H~_j ... H~_{last line of j's group}
+
+
+BT_GROUP = 8
+
+
+def _group_prefix(H: torch.Tensor, g: int, reverse: bool = False) -> torch.Tensor:
+    """Within-group products of H (..., N, q, q), N a multiple of g:
+    Q_{k,i} = H_{k,i} ... H_{k,0}, or with ``reverse`` H_{k,i} ... H_{k,g-1}
+    (g - 1 batched products, all groups at once)."""
+    shape = H.shape
+    N, q = shape[-3], shape[-1]
+    Hk = H.reshape(shape[:-3] + (N // g, g, q, q))
+    order = range(g - 1, -1, -1) if reverse else range(g)
+    Q = [None] * g
+    prev = None
+    for i in order:
+        Q[i] = Hk[..., i, :, :] if prev is None else Hk[..., i, :, :] @ Q[prev]
+        prev = i
+    return torch.stack(Q, dim=-3).reshape(shape)
+
+
+def bt_factor_blocked(sys: InteriorSystem, inv_fn=torch.linalg.inv,
+                      g: int = BT_GROUP) -> BTFactorBlocked:
+    """The thomas factor, padded to a multiple of g lines (zero blocks and
+    couplings), and its groups' prefix products."""
+    G, offz = bt_factor(sys, inv_fn=inv_fn)
+    batch, (nzi, q) = G.shape[:-3], G.shape[-3:-1]
+    N = -(-nzi // g) * g
+    c = offz.to(G.dtype).expand(batch + offz.shape[-2:])
+    zline, tail = G.new_zeros(batch + (1, q)), G.new_zeros(batch + (N - nzi, q))
+    cf = torch.cat([zline, c, tail], dim=-2)
+    cb = torch.cat([c, zline, tail], dim=-2)
+    if N > nzi:
+        G = torch.cat([G, G.new_zeros(batch + (N - nzi, q, q))], dim=-3)
+    Qf = _group_prefix(G * cf[..., None, :], g)
+    Qb = _group_prefix(G * cb[..., None, :], g, reverse=True)
+    return BTFactorBlocked(G, offz, cf, cb, Qf, Qb)
+
+
+def _blocked_affine_scan(u: torch.Tensor, G: torch.Tensor, c: torch.Tensor,
+                         Q: torch.Tensor, g: int, reverse: bool = False) -> torch.Tensor:
+    """y_j = u_j + G_j diag(c_j) y_{j-1} for j = 0..N-1 (y_{-1} = 0), or with
+    ``reverse`` y_j = u_j + G_j diag(c_j) y_{j+1} from j = N-1 down
+    (y_N = 0), in about g + N/g sequential steps; u is (..., N, q, k) column
+    blocks and Q the matching :func:`_group_prefix`."""
+    N, q, k = u.shape[-3:]
+    K = N // g
+    uk = u.reshape(u.shape[:-3] + (K, g, q, k))
+    Gk = G.reshape(G.shape[:-3] + (K, g, q, q))
+    ck = c.reshape(c.shape[:-2] + (K, g, q, 1))
+    Qk = Q.reshape(Q.shape[:-3] + (K, g, q, q))
+    order = range(g - 1, -1, -1) if reverse else range(g)
+
+    # (A) the in-group steps with no incoming carry, groups batched
+    z = [None] * g
+    prev = None
+    for i in order:
+        z[i] = (uk[..., i, :, :] if prev is None
+                else uk[..., i, :, :] + Gk[..., i, :, :] @ (ck[..., i, :, :] * z[prev]))
+        prev = i
+    z = torch.stack(z, dim=-3)                        # (..., K, g, q, k)
+
+    # (B) the carries across groups: carry_k = z at the group's end +
+    # (the whole group's product) carry of the group before
+    cin = [None] * K
+    carry = torch.zeros_like(z[..., 0, 0, :, :])
+    for kk in (range(K - 1, -1, -1) if reverse else range(K)):
+        cin[kk] = carry
+        carry = z[..., kk, prev, :, :] + Qk[..., kk, prev, :, :] @ carry
+    cin = torch.stack(cin, dim=-3)                    # (..., K, q, k)
+
+    # (C) the fix-up y_{k,i} = z_{k,i} + Q_{k,i} cin_k, one batched product
+    y = z + Qk @ cin[..., None, :, :]
+    return y.reshape(y.shape[:-4] + (N, q, k))
+
+
+def bt_solve_blocked(fac: BTFactorBlocked, b: torch.Tensor,
+                     g: int = BT_GROUP) -> torch.Tensor:
+    """Grouped triangular sweeps; the same result as :func:`bt_solve`.
+    Right-hand sides sharing the factor are the columns of each product
+    (:func:`_as_columns`), so no product copies G, Qf or Qb per row."""
+    G = fac.G
+    N, nzi = G.shape[-3], b.shape[-2]
+    v, restore = _as_columns(G.shape[:-3], b.to(G.dtype))
+    if N > nzi:
+        v = torch.cat([v, v.new_zeros(v.shape[:-3] + (N - nzi,) + v.shape[-2:])], dim=-3)
+    y = _blocked_affine_scan(G @ v, G, fac.cf, fac.Qf, g)
+    x = _blocked_affine_scan(y, G, fac.cb, fac.Qb, g, reverse=True)
+    return restore(x[..., :nzi, :, :])
+
+
 def equilibrate(sys: InteriorSystem) -> tuple[InteriorSystem, torch.Tensor]:
     """Symmetric diagonal scaling s A s with s = 1/sqrt(|diag|): compresses
     the TM operator's dynamic range so a complex64 factor stays accurate,
@@ -201,8 +318,9 @@ def _T(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
 
 
-def bcr_factor(sys: InteriorSystem) -> BCRFactor:
-    """Cyclic reduction of the interior block-tridiagonal system.
+def bcr_factor(sys: InteriorSystem, inv_fn=None) -> BCRFactor:
+    """Cyclic reduction of the interior block-tridiagonal system;
+    ``inv_fn`` is the batched inverse (default ``torch.linalg.inv``).
 
     Pads the nzi z-lines to N = 2^m - 1 with identity blocks and zero
     couplings (decoupled), then eliminates the 0-based even blocks level
@@ -215,9 +333,10 @@ def bcr_factor(sys: InteriorSystem) -> BCRFactor:
     batch = torch.broadcast_shapes(T.shape[:-3], offz.shape[:-2])
     T = T.expand(batch + T.shape[-3:])
     nzi, q = T.shape[-3], T.shape[-1]
+    inv_fn = torch.linalg.inv if inv_fn is None else inv_fn
     N = 2 ** nzi.bit_length() - 1          # the smallest 2^m - 1 >= nzi
     if N == 1:
-        return BCRFactor((BCRLevel(torch.linalg.inv(T), None, None),))
+        return BCRFactor((BCRLevel(inv_fn(T), None, None),))
     eye = torch.eye(q, dtype=T.dtype, device=T.device)
     T = torch.cat([T, eye.expand(batch + (N - nzi, q, q))], dim=-3)
     c = torch.cat([offz.to(T.dtype).expand(batch + offz.shape[-2:]),
@@ -225,7 +344,7 @@ def bcr_factor(sys: InteriorSystem) -> BCRFactor:
     levels = []
 
     # level 0: diagonal couplings
-    Dinv = torch.linalg.inv(T[..., 0::2, :, :])
+    Dinv = inv_fn(T[..., 0::2, :, :])
     zv = torch.zeros_like(c[..., :1, :])
     levels.append(BCRLevel(Dinv, torch.cat([zv, c[..., 1::2, :]], dim=-2),  # C_{i-1}, even i
                            torch.cat([c[..., 0::2, :], zv], dim=-2)))       # C_i
@@ -241,7 +360,7 @@ def bcr_factor(sys: InteriorSystem) -> BCRFactor:
     # dense levels
     while Dl.shape[-3] > 1:
         nl = Dl.shape[-3]
-        Dinv = torch.linalg.inv(Dl[..., 0::2, :, :])
+        Dinv = inv_fn(Dl[..., 0::2, :, :])
         zb = torch.zeros_like(Cl[..., :1, :, :])
         levels.append(BCRLevel(Dinv, torch.cat([zb, Cl[..., 1::2, :, :]], dim=-3),
                                torch.cat([Cl[..., 0::2, :, :], zb], dim=-3)))
@@ -252,7 +371,7 @@ def bcr_factor(sys: InteriorSystem) -> BCRFactor:
         Cl = (CR[..., :-1, :, :] @ (k1[..., :-1, :, :] @ Cl[..., 2::2, :, :])
               if nl > 3 else Cl[..., :0, :, :])
         Dl = Dn
-    levels.append(BCRLevel(torch.linalg.inv(Dl), None, None))
+    levels.append(BCRLevel(inv_fn(Dl), None, None))
     return BCRFactor(tuple(levels))
 
 
@@ -309,22 +428,35 @@ def bcr_solve(fac: BCRFactor, b: torch.Tensor) -> torch.Tensor:
 
 class Factorization(NamedTuple):
     """Equilibrated factorisation reusable across solves: ``fac`` is a
-    :class:`BTFactor` (thomas), a :class:`BCRFactor` (bcr) or a
-    :class:`FusedFactor` (the fused kernels)."""
+    :class:`BTFactor` (thomas), a :class:`BTFactorBlocked`
+    (thomas_blocked), a :class:`BCRFactor` (bcr) or a :class:`FusedFactor`
+    (the fused kernels)."""
 
-    fac: BTFactor | BCRFactor | FusedFactor
+    fac: BTFactor | BTFactorBlocked | BCRFactor | FusedFactor
     s: torch.Tensor
 
 
-FACTOR_FN = {"thomas": bt_factor, "bcr": bcr_factor}
+FACTOR_FN = {"thomas": bt_factor, "thomas_blocked": bt_factor_blocked,
+             "bcr": bcr_factor}
+INV_FN = {"lu": torch.linalg.inv, "gj": gj_inverse}
 
 
-def factorize(sys: InteriorSystem, dtype=None, method: str = "thomas") -> Factorization:
+def uses_kernels(method: str, inv_method: str) -> bool:
+    """Whether :func:`factorize` with these names launches the hand-written
+    CUDA kernels on a CUDA tensor (so a process group builds them once)."""
+    return method == "fused" or inv_method == "gj"
+
+
+def factorize(sys: InteriorSystem, dtype=None, method: str = "thomas",
+              inv_method: str = "lu") -> Factorization:
     """Equilibrate ``sys``, cast it to ``dtype`` and factorise it with the
-    engine ``method``.  An unknown name raises: no engine falls back to
-    another."""
+    engine ``method``, whose blocks are inverted by ``inv_method`` (the
+    fused engine inverts in its own kernel).  An unknown name raises: no
+    engine falls back to another."""
     if method not in FACTOR_FN and method != "fused":
         raise ValueError(f"unknown solver method {method!r}")
+    if inv_method not in INV_FN:
+        raise ValueError(f"unknown inverse method {inv_method!r}")
     ssys, s = equilibrate(sys)
     if dtype is not None:
         rdt = REAL_DTYPE[dtype]
@@ -333,7 +465,7 @@ def factorize(sys: InteriorSystem, dtype=None, method: str = "thomas") -> Factor
     if method == "fused":
         fac = fused_schur_factor(*ssys)
     else:
-        fac = FACTOR_FN[method](ssys)
+        fac = FACTOR_FN[method](ssys, inv_fn=INV_FN[inv_method])
     return Factorization(fac, s)
 
 
@@ -355,7 +487,8 @@ def _fused_solve(fac: FusedFactor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-SOLVE_FN = {FusedFactor: _fused_solve, BCRFactor: bcr_solve, BTFactor: bt_solve}
+SOLVE_FN = {FusedFactor: _fused_solve, BCRFactor: bcr_solve, BTFactor: bt_solve,
+            BTFactorBlocked: bt_solve_blocked}
 
 
 def factor_solve(f: Factorization, b: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.posterior import InverseProblem
+from ..ops import solver
 from ..sampler import adapt as A
 from ..sampler import hmc as H
 from ..utils.collectives import all_gather_cat, all_reduce_sum
@@ -175,7 +176,9 @@ class ShardedSampler:
         self.flat_index = torch.as_tensor(data.flat_index, device=problem.device)
         self.factor_fn = ((lambda m: problem.factor_state_cube(m, self.freqs))
                           if amortize else None)
-        if problem.fwd.cfg.solver_method == "fused" and problem.device.type == "cuda":
+        cfg = problem.fwd.cfg
+        if (solver.uses_kernels(cfg.solver_method, cfg.inv_method)
+                and problem.device.type == "cuda"):
             from ..ops import kernel_build
 
             # rank 0 runs nvcc while the others wait, then every rank loads

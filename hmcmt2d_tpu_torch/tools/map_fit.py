@@ -17,7 +17,7 @@ a progress line is printed.  Usage::
 
     python -m hmcmt2d_tpu_torch.tools.map_fit <startupfile> [--iters N]
         [--regs 1.0,0.01] [--lr 0.03] [--chains 4]
-        [--solver thomas|bcr|fused]
+        [--solver thomas|thomas_blocked|bcr|fused]
         [--out out.json] [--device cpu]
 """
 
@@ -52,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=0.03)
     ap.add_argument("--chains", type=int, default=4)
     ap.add_argument("--solver", default="auto",
-                    choices=["auto", "thomas", "bcr", "fused"])
+                    choices=["auto", "thomas", "thomas_blocked", "bcr", "fused"])
     ap.add_argument("--refine", type=int, default=6)
     ap.add_argument("--out", default="")
     add_device_arg(ap)

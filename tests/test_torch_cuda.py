@@ -226,6 +226,68 @@ def test_bcr_on_card_matches_cpu_complex128(cuda_device):
     assert err["bcr"] <= 10 * err["thomas"], err
 
 
+GJ_TOL = {torch.complex64: 1e-4, torch.complex128: 1e-10}
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=["c64", "c128"])
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 64, 95, 96, 127, 128])
+def test_gj_inverse_matches_plain(cuda_device, n, dtype):
+    """The gj_inverse kernel at the edges of its width templates against
+    its plain version (the same elimination order) and against LU, on
+    diagonally dominant matrices with two batch axes (collapsed to one
+    launch)."""
+    rng = np.random.default_rng(40 + n)
+    A = (0.3 * (rng.standard_normal((2, 3, n, n)) + 1j * rng.standard_normal((2, 3, n, n)))
+         + (4.0 + 0.5j) * np.sqrt(n) * np.eye(n))
+    A = torch.as_tensor(A, dtype=dtype, device=cuda_device)
+    FF.reset_launches()
+    X = FF.gj_inverse(A)
+    assert FF.launches()["gj_inverse"] == 1 and X.shape == A.shape
+    assert relerr(X, FF.gj_inverse_nopivot(A)) < GJ_TOL[dtype]
+    lu = torch.linalg.inv(A.to(torch.complex128))
+    assert relerr(X.to(torch.complex128), lu) < (1e-5 if dtype == torch.complex64 else 1e-12)
+
+
+def test_gj_inverse_launch_checks(cuda_device):
+    A = torch.eye(8, dtype=torch.complex64, device=cuda_device).expand(2, 8, 8)
+    with pytest.raises(ValueError):
+        FF.gj_inverse(A.real.contiguous())                  # not complex
+    with pytest.raises(ValueError):
+        FF.gj_inverse(torch.eye(129, dtype=torch.complex64, device=cuda_device))
+    with pytest.raises(ValueError):
+        FF.gj_inverse(A[..., :7])                           # not square
+    # a transposed view and a lazy conjugate are made contiguous first
+    X = FF.gj_inverse(A.transpose(-1, -2).conj())
+    assert relerr(X, A) < 1e-7
+
+
+def test_gj_engines_on_card_match_cpu_complex128(cuda_device):
+    """thomas, thomas_blocked and bcr with the gj_inverse kernel on the
+    card, complex64 refined 6 times, against exact complex128 thomas on the
+    CPU: the tiny flagship's potential and gradient, and the kernel
+    launched once a line (thomas, thomas_blocked) or once a level (bcr) of
+    each factor, with no fused kernel."""
+    cpu, m0 = entry.flagship_problem(tiny=True, device="cpu")
+    rng = np.random.default_rng(1)
+    m = m0 + 0.1 * rng.standard_normal((2, len(m0)))
+    mc = torch.as_tensor(m)
+    (Uc, _), gc = make_potential_vg(cpu, 1.0)(mc, mc)
+    nzi = cpu.mesh.nz - 1
+    for method, per_factor in (("thomas", nzi), ("thomas_blocked", nzi),
+                               ("bcr", nzi.bit_length())):
+        cfg = SolveConfig(torch.complex64, 6, method, "gj")
+        gpu, _ = entry.flagship_problem(tiny=True, device=cuda_device, cfg=cfg)
+        mg = torch.as_tensor(m, dtype=torch.float32, device=cuda_device)
+        FF.reset_launches()
+        (U, _), g = make_potential_vg(gpu, 1.0)(mg, mg)
+        assert FF.launches() == {"schur_factor": 0, "bt_sweep_fwd": 0, "bt_sweep_bwd": 0,
+                                 "gj_inverse": per_factor}, method
+        assert relerr(U.cpu().double(), Uc) < 1e-4, method
+        g = g.cpu().double()
+        cos = (g * gc).sum(-1) / (g.norm(dim=-1) * gc.norm(dim=-1))
+        assert float(cos.min()) > 0.9999, method
+
+
 def test_run_inversion_main_phase_on_the_kernels(cuda_device):
     """A hybrid run (thomas warmup, fused main phase) on the card: the main
     phase launches the factor once per fused gradient eval (one at the

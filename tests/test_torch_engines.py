@@ -1,6 +1,7 @@
-"""The port's block-cyclic-reduction engine (``bcr``) against the JAX
-package's, the engine named on both sides; the JAX engines the port leaves
-out (``thomas_blocked``, the Gauss-Jordan inverse ``gj``) are refused.
+"""The port's solver engines beyond thomas against the JAX package's, the
+engine named on both sides: block cyclic reduction (``bcr``), grouped
+block Thomas (``thomas_blocked``), and the unpivoted Gauss-Jordan inverse
+(``inv_method="gj"``) inside thomas, thomas_blocked and bcr.
 
 Systems are the real MT interior operator of ``tests/test_solver.py``'s
 small graded meshes (air rows on top), built from the same numpy
@@ -8,8 +9,10 @@ conductivities by each package's own mesh code.  Tolerances: 1e-10
 relative for solves and factors in complex128 (other summation orders),
 1e-12 for the multi-right-hand-side path against one solve per row; the
 problem-level checks take the other parity tests' (U 1e-10, gradients
-1e-8, J v and J 1e-9).  An unrefined complex64 bcr solve may be at most
-10x as far from the complex128 solve as the complex64 thomas one.
+1e-8, J v and J 1e-9), and 1e-12 for potential and gradient under the
+thomas_blocked and gj engines, which repeat thomas's or bcr's arithmetic
+in the same order.  An unrefined complex64 solve may be at most 10x as far
+from the complex128 solve as the complex64 thomas one.
 """
 
 import argparse
@@ -76,14 +79,15 @@ def _systems(mode, ny=12, nz=9, freq=1.0, seed=3):
     return jsys, tsys, b
 
 
-@functools.partial(jax.jit, static_argnames="method")
-def _jax_factor_solve(jsys, b, method):
-    return JS.factor_solve(JS.factorize(jsys, method=method), b)
+@functools.partial(jax.jit, static_argnames=("method", "inv_method"))
+def _jax_factor_solve(jsys, b, method, inv_method="lu"):
+    return JS.factor_solve(JS.factorize(jsys, method=method, inv_method=inv_method), b)
 
 
-def _solve_pair(jsys, tsys, b, method):
-    jx = _jax_factor_solve(jsys, jnp.asarray(b), method=method)
-    tx = TS.factor_solve(TS.factorize(tsys, method=method), torch.as_tensor(b))
+def _solve_pair(jsys, tsys, b, method, inv_method="lu"):
+    jx = _jax_factor_solve(jsys, jnp.asarray(b), method=method, inv_method=inv_method)
+    tx = TS.factor_solve(TS.factorize(tsys, method=method, inv_method=inv_method),
+                         torch.as_tensor(b))
     return tx, jx
 
 
@@ -124,6 +128,61 @@ def test_bcr_line_counts_match_jax(nz):
     assert relerr(tx, jx) < TOL
 
 
+# grouped block Thomas: JAX's test_blocked_thomas_solve_matches_scipy sizes
+# (ny x nz: a multiple of the group of 8 lines, and two that are not)
+BLOCKED_SIZES = [(12, 9), (10, 18), (8, 6)]
+
+
+@pytest.mark.parametrize("ny,nz", BLOCKED_SIZES)
+@pytest.mark.parametrize("freq", [0.01, 1.0, 100.0])
+@pytest.mark.parametrize("mode", ["TE", "TM"])
+def test_thomas_blocked_solve_matches_jax(mode, freq, ny, nz):
+    jsys, tsys, b = _systems(mode, ny=ny, nz=nz, freq=freq)
+    tx, jx = _solve_pair(jsys, tsys, b, "thomas_blocked")
+    assert relerr(tx, jx) < TOL
+    assert relerr(TS.apply_interior(tsys, tx), b) < TOL
+
+
+@pytest.mark.parametrize("mode", ["TE", "TM"])
+def test_thomas_blocked_factor_matches_jax(mode):
+    """nzi = 17 lines pad to 24: G, the couplings and both groups' prefix
+    products (JAX keeps the backward ones in reversed line order)."""
+    jsys, tsys, _ = _systems(mode, ny=10, nz=18)
+    jf = jax.jit(lambda s: JS.bt_factor_blocked(JS.equilibrate(s)[0]))(jsys)
+    tf = TS.bt_factor_blocked(TS.equilibrate(tsys)[0])
+    assert tf.G.shape[-3] == 24
+    for name in ("G", "offz", "cf", "cb", "Qf"):
+        assert _close(getattr(tf, name), getattr(jf, name), TOL), name
+    assert _close(tf.Qb, np.asarray(jf.Qb)[..., ::-1, :, :], TOL)
+
+
+@pytest.mark.parametrize("method", ["thomas", "thomas_blocked", "bcr"])
+@pytest.mark.parametrize("mode", ["TE", "TM"])
+def test_gj_factor_solve_matches_jax(mode, method):
+    """factorize(..., inv_method="gj") and factor_solve against JAX's at
+    1 Hz and 0.01 Hz, nzi = 16 (bcr's five levels)."""
+    for freq in (1.0, 0.01):
+        jsys, tsys, b = _systems(mode, nz=17, freq=freq)
+        tx, jx = _solve_pair(jsys, tsys, b, method, "gj")
+        assert relerr(tx, jx) < TOL
+        assert relerr(TS.apply_interior(tsys, tx), b) < TOL
+
+
+@pytest.mark.parametrize("mode", ["TE", "TM"])
+def test_complex64_thomas_blocked_refined(mode):
+    """A complex64 thomas_blocked factor refined 3 times against the
+    complex128 operator reaches the complex128 solve, and beats the
+    unrefined complex64 one."""
+    _, tsys, b = _systems(mode)
+    want = TS.factor_solve(TS.factorize(tsys), torch.as_tensor(b))
+    fac = TS.factorize(tsys, dtype=torch.complex64, method="thomas_blocked")
+    assert fac.fac.G.dtype == fac.fac.Qf.dtype == torch.complex64
+    raw = TS.factor_solve(fac, torch.as_tensor(b))
+    refined = TS.refined_solve(tsys, fac, torch.as_tensor(b), iters=3)
+    assert 1e-8 < relerr(raw, want) < 1e-3
+    assert relerr(refined, want) < TOL
+
+
 @pytest.mark.parametrize("mode", ["TE", "TM"])
 def test_complex64_factor_refined(mode):
     """A complex64 bcr factor refined 3 times against the complex128
@@ -149,13 +208,15 @@ def test_complex64_bcr_unrefined_error_near_thomas(mode, freq):
     _, tsys, b = _systems(mode, nz=17, freq=freq)
     b = torch.as_tensor(b)
     want = TS.factor_solve(TS.factorize(tsys), b)
-    err = {m: relerr(TS.factor_solve(TS.factorize(tsys, dtype=torch.complex64, method=m), b),
-                     want) for m in ("thomas", "bcr")}
-    assert 0 < err["thomas"] < 1e-3
-    assert err["bcr"] <= RAW_RATIO * err["thomas"], err
+    err = {(m, inv): relerr(TS.factor_solve(TS.factorize(tsys, dtype=torch.complex64, method=m,
+                                                         inv_method=inv), b), want)
+           for m in ("thomas", "bcr", "thomas_blocked") for inv in ("lu", "gj")}
+    assert 0 < err["thomas", "lu"] < 1e-3
+    for key, e in err.items():
+        assert e <= RAW_RATIO * err["thomas", "lu"], (key, err)
 
 
-@pytest.mark.parametrize("method", ["bcr", "thomas"])
+@pytest.mark.parametrize("method", ["bcr", "thomas", "thomas_blocked"])
 def test_shared_factor_equals_per_row_solves(method):
     """A factor whose batch is 1 on a row axis, 5 rows in b (the Jacobian's
     slab): one solve equals 5 per-row solves."""
@@ -171,12 +232,14 @@ def test_shared_factor_equals_per_row_solves(method):
     assert relerr(got, want) < 1e-12
 
 
-@pytest.mark.parametrize("method", ["cholesky", "thomas_blocked"])
-def test_unknown_engine_names_raise(method):
-    """An unknown name, or a JAX engine the port leaves out, raises."""
+@pytest.mark.parametrize("method,inv,what", [("cholesky", "lu", "solver method"),
+                                             ("thomas", "qr", "inverse method")],
+                         ids=["cholesky", "inverse-qr"])
+def test_unknown_engine_names_raise(method, inv, what):
+    """An unknown engine or inverse name raises: nothing falls back."""
     _, tsys, _ = _systems("TE", nz=4)
-    with pytest.raises(ValueError, match="solver method"):
-        TS.factorize(tsys, method=method)
+    with pytest.raises(ValueError, match=what):
+        TS.factorize(tsys, method=method, inv_method=inv)
 
 
 # -- through the problem ---------------------------------------------------
@@ -188,10 +251,10 @@ def tiny():
     return jprob, m
 
 
-def _engine_pair(jprob, method):
-    jp = jax_problem_with(jprob, JF.SolveConfig(jnp.complex128, 0, method))
+def _engine_pair(jprob, method, inv="lu"):
+    jp = jax_problem_with(jprob, JF.SolveConfig(jnp.complex128, 0, method, inv))
     tp = convert.problem_from_arrays(problem_arrays(jprob),
-                                     SolveConfig(torch.complex128, 0, method),
+                                     SolveConfig(torch.complex128, 0, method, inv),
                                      device="cpu")
     return jp, tp
 
@@ -205,6 +268,21 @@ def test_potential_and_gradient_match_jax(tiny):
     assert relerr(U, jU) < TOL
     jg = np.asarray(jg)
     assert np.linalg.norm(g.numpy() - jg) / np.linalg.norm(jg) < GRAD_TOL
+
+
+@pytest.mark.parametrize("method,inv", [("thomas_blocked", "lu"), ("thomas", "gj"),
+                                        ("bcr", "gj"), ("thomas_blocked", "gj")])
+def test_new_engines_potential_and_gradient_match_jax(tiny, method, inv):
+    """Potential and gradient through the problem under thomas_blocked and
+    the Gauss-Jordan inverse, against JAX's under the same engine."""
+    jprob, m = tiny
+    jp, tp = _engine_pair(jprob, method, inv)
+    (jU, _), jg = jax.jit(jax_vg(jp, 1.0))(jnp.asarray(m), jnp.asarray(m))
+    mt = torch.as_tensor(m)
+    (U, _), g = make_potential_vg(tp, 1.0)(mt, mt)
+    assert relerr(U, jU) < 1e-12
+    jg = np.asarray(jg)
+    assert np.linalg.norm(g.numpy() - jg) / np.linalg.norm(jg) < 1e-12
 
 
 def test_stale_factor_potential_matches_jax(tiny):
@@ -288,14 +366,17 @@ CLI_ARGVS = [
     ["--precision", "f64", "--solver", "fused", "run", "s", "--warmup-solver", "bcr"],
     ["--solver", "fused", "run", "s"],
 ]
-# JAX command lines naming an engine the port leaves out, and what the
-# port's refusal points to
-NOT_PORTED_ARGVS = [
-    (["--solver", "thomas_blocked", "run", "s"], "--solver bcr"),
-    (["--precision", "f32", "--refine", "2", "--solver", "thomas_blocked", "run", "s",
-      "--warmup-solver", "bcr"], "--solver bcr"),
-    (["--solver", "bcr", "--inv", "gj", "run", "s"], "--inv lu"),
-    (["--precision", "f32", "--solver", "fused", "--inv", "gj", "run", "s"], "--inv lu"),
+# command lines naming grouped block Thomas or the Gauss-Jordan inverse
+GJ_BLOCKED_ARGVS = [
+    ["--solver", "thomas_blocked", "run", "s"],
+    ["--precision", "f32", "--refine", "2", "--solver", "thomas_blocked", "run", "s",
+     "--warmup-solver", "bcr"],
+    ["--solver", "bcr", "--inv", "gj", "run", "s"],
+    ["--precision", "f32", "--solver", "fused", "--inv", "gj", "run", "s"],
+    ["--precision", "f64", "--solver", "thomas_blocked", "--inv", "gj", "run", "s"],
+    ["--precision", "f32", "--refine", "6", "--solver", "fused", "--inv", "gj", "run", "s",
+     "--warmup-solver", "bcr"],
+    ["--solver", "thomas", "--inv", "gj", "run", "s", "--warmup-solver", "bcr"],
 ]
 
 
@@ -304,7 +385,8 @@ def _fields(cfg):
         return None
     itemsize = (cfg.real_dtype.itemsize if isinstance(cfg.real_dtype, torch.dtype)
                 else np.dtype(cfg.real_dtype).itemsize)
-    return cfg.solver_method, cfg.refine_iters, itemsize, cfg.stale_refine_iters
+    return (cfg.solver_method, cfg.inv_method, cfg.refine_iters, itemsize,
+            cfg.stale_refine_iters)
 
 
 def _resolve(solve_cfg, warmup_cfg, args):
@@ -315,12 +397,12 @@ def _resolve(solve_cfg, warmup_cfg, args):
     return _fields(cfg), _fields(warmup_cfg(args, cfg))
 
 
-@pytest.mark.parametrize("argv", CLI_ARGVS, ids=[" ".join(a) for a in CLI_ARGVS])
+@pytest.mark.parametrize("argv", CLI_ARGVS + GJ_BLOCKED_ARGVS,
+                         ids=[" ".join(a) for a in CLI_ARGVS + GJ_BLOCKED_ARGVS])
 def test_cli_solve_config_matches_jax(argv):
     """The same argv through the port's and JAX's _solve_cfg and
-    _warmup_cfg: equal field by field (dtype by its width; JAX's inverse
-    is LU, the port's only one); a refused config is refused on both
-    sides."""
+    _warmup_cfg: equal field by field, the engine's inverse included
+    (dtype by its width); a refused config is refused on both sides."""
     args = cli.build_parser().parse_args(argv)
     got = _resolve(lambda a: cli._solve_cfg(a, torch.device("cpu")), cli._warmup_cfg, args)
     jargs = argparse.Namespace(**vars(args))
@@ -330,20 +412,19 @@ def test_cli_solve_config_matches_jax(argv):
         assert want[1][0] == "thomas"
         want = (want[0], ("bcr",) + want[1][1:])
     assert got == want
-    if want[0] != "SystemExit":
-        assert JC._solve_cfg(jargs).inv_method == "lu"
 
 
-@pytest.mark.parametrize("argv,use", NOT_PORTED_ARGVS,
-                         ids=[" ".join(a) for a, _ in NOT_PORTED_ARGVS])
-def test_cli_refuses_engines_left_out(argv, use):
-    """A JAX command line naming thomas_blocked or the Gauss-Jordan
-    inverse parses, JAX takes it, and the port refuses it, naming the
-    engine to use instead."""
-    args = cli.build_parser().parse_args(argv)
-    assert JC._solve_cfg(argparse.Namespace(**vars(args))).solver_method == args.solver
-    with pytest.raises(SystemExit, match=use):
-        cli._solve_cfg(args, torch.device("cpu"))
+def test_cli_engine_choices_match_jax():
+    """--solver and --inv take the JAX CLI's names; --inv auto is LU."""
+    args = cli.build_parser().parse_args(["run", "s"])
+    assert cli._solve_cfg(args, torch.device("cpu")).inv_method == "lu"
+    for flag, names in (("--solver", ["auto", "thomas", "thomas_blocked", "bcr", "fused"]),
+                        ("--inv", ["auto", "lu", "gj"])):
+        for name in names:
+            assert getattr(cli.build_parser().parse_args([flag, name, "run", "s"]),
+                           flag[2:]) == name
+        with pytest.raises(SystemExit):
+            cli.build_parser().parse_args([flag, "cholesky", "run", "s"])
 
 
 def test_cli_default_engine_differs_from_jax_on_purpose():
@@ -379,17 +460,21 @@ FUSED = ["--precision", "f32", "--refine", "6", "--solver", "fused"]
     (FUSED, ["--warmup-solver", "bcr"], "bcr -> main engine fused"),
     (FUSED, [], "bcr -> main engine fused"),
     (FUSED, ["--warmup-solver", "thomas"], "thomas -> main engine fused"),
+    (["--solver", "thomas_blocked"], [], None),
+    (FUSED + ["--inv", "gj"], [], "bcr -> main engine fused"),
 ], ids=["bcr", "bcr-warmup-fused-main", "auto-warmup-fused-main",
-        "thomas-warmup-fused-main"])
+        "thomas-warmup-fused-main", "thomas_blocked", "gj-auto-warmup-fused-main"])
 def test_cli_runs_under_each_engine(startup, tmp_path, capsys, flags, warmup, hybrid):
     """``hmcmt2d-torch --device cpu`` runs the tiny problem to its output
-    files: all of it on bcr (GN mass, amortised stale factors), or warmup
-    and GN mass on bcr (asked for, or by default) or thomas and the rest
-    on the fused path (the kernels' plain versions on the CPU)."""
+    files: all of it on bcr or thomas_blocked (GN mass, amortised stale
+    factors), or warmup and GN mass on bcr (asked for, or by default, with
+    LU or, under --inv gj, Gauss-Jordan) or thomas and the rest on the
+    fused path (the kernels' plain versions on the CPU)."""
     run = ["run", str(startup), "--outdir", str(tmp_path), "--samples", "8", *warmup]
     assert cli.main(["--device", "cpu", *flags, *run]) == 0
     log = capsys.readouterr().out
     assert f"solve={flags[flags.index('--solver') + 1]}" in log
+    assert f"inv={'gj' if '--inv' in flags else 'lu'}" in log
     assert ("hybrid: warmup engine " + (hybrid or "")) in log if hybrid else "hybrid" not in log
     assert "dense mass (gn)" in log
     for i in (1, 2):

@@ -1,16 +1,19 @@
-"""Launch plans of the factor and the two sweep kernels, checked on the CPU:
-for every line width the kernels take, the plan's tile covers the line and
-its blocks per SM fit in an H100 SM's shared memory; wider lines are
-refused."""
+"""Launch plans of the factor, the two sweep kernels and the Gauss-Jordan
+inverse (in both of its types), checked on the CPU: for every line width
+the kernels take, the plan's tile covers the line and its blocks per SM fit
+in an H100 SM's shared memory; wider lines are refused."""
 
 import pytest
+import torch
 
 from hmcmt2d_tpu_torch.ops import fused_factor as FF
 
 PLANS = {"schur_factor": FF.schur_factor_plan,
          "schur_factor_polish": lambda q: FF.schur_factor_plan(q, polish=1),
          "bt_sweep_fwd": FF.bt_sweep_fwd_plan,
-         "bt_sweep_bwd": FF.bt_sweep_bwd_plan}
+         "bt_sweep_bwd": FF.bt_sweep_bwd_plan,
+         "gj_inverse_c64": lambda n: FF.gj_inverse_plan(n, torch.complex64),
+         "gj_inverse_c128": lambda n: FF.gj_inverse_plan(n, torch.complex128)}
 
 
 @pytest.mark.parametrize("kernel", sorted(PLANS))
@@ -35,3 +38,24 @@ def test_plan_covers_q_and_fits(kernel, q):
 def test_plan_refuses_widths_outside_the_kernels(kernel, q):
     with pytest.raises(ValueError):
         PLANS[kernel](q)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=["c64", "c128"])
+@pytest.mark.parametrize("n", range(1, FF.Q_MAX + 1))
+def test_gj_inverse_plan_matches_the_kernel(n, dtype):
+    """The plan's bytes and blocks are what csrc/gj_inverse.cu takes: the
+    double-buffered pivot row and column, and two blocks an SM only where
+    the matrix tile takes at most 36 of the 64 registers a thread has there
+    (qp <= 96 in complex64, qp <= 64 in complex128)."""
+    plan = FF.gj_inverse_plan(n, dtype)
+    elem = 8 if dtype == torch.complex64 else 16
+    assert plan.smem_bytes == 4 * plan.qp * elem and plan.qp - n < 32
+    assert plan.threads == (FF.LANES, FF.WARPS) and plan.ring == 0
+    tile_registers = plan.tile[0] * plan.tile[1] * elem // 4
+    assert plan.blocks_per_sm == (2 if tile_registers <= 36 else 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex32])
+def test_gj_inverse_plan_refuses_other_types(dtype):
+    with pytest.raises(ValueError):
+        FF.gj_inverse_plan(8, dtype)

@@ -242,6 +242,22 @@ def test_map_fit_report(run_dir, tmp_path):
         assert np.isfinite(r["chi2_per_datum_per_chain"]).all()
 
 
+def test_map_fit_under_thomas_blocked(run_dir, tmp_path):
+    """``--solver thomas_blocked`` (JAX's script takes any engine name) runs
+    the same Adam fit as exact thomas: the same chi^2 to 1e-8."""
+    d = run_dir["dir"]
+    reps = {}
+    for solver in ("thomas", "thomas_blocked"):
+        out = tmp_path / f"{solver}.json"
+        assert map_fit.main([str(d / "startup"), "--iters", "3", "--seg", "1", "--regs",
+                             "1.0", "--chains", "1", "--device", "cpu", "--solver", solver,
+                             "--out", str(out)]) == 0
+        reps[solver] = json.loads(out.read_text())
+    assert reps["thomas_blocked"]["engine"] == "thomas_blocked"
+    assert relerr(reps["thomas_blocked"]["regs"]["1.0"]["chi2_per_datum_per_chain"],
+                  reps["thomas"]["regs"]["1.0"]["chi2_per_datum_per_chain"]) < 1e-8
+
+
 @pytest.mark.parametrize("tool", [summarize_checkpoint, refresh_extend, map_fit])
 def test_tools_default_to_the_gpu(run_dir, tool, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
