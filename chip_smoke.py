@@ -18,16 +18,17 @@ Phases, each of which exits non-zero on failure:
 3. each kernel against its plain PyTorch version at the shapes of the main
    path (the equilibrated flagship operator at C = 8 chains: B = 176 systems,
    nzi = 55 z-lines, q = 95), with times, the card's bound for the same
-   work, its share of that bound, and a library yardstick; the factor's
-   Newton-Schulz variant (polish = 1) too, and the unrefined solve error of
-   polish 0 and 1 against complex128 thomas on that operator; then all
-   three, which are compiled per padded width, at the edges of their
-   templates and at the end of G (random diagonally dominant systems);
-   and ``gj_inverse``, the engines' Gauss-Jordan inverse, at the blocks
-   they invert (one thomas line, B = 176, n = 95, in complex64 and
-   complex128; bcr's level 0, B = 176 x 32) with ``torch.linalg.inv`` as
-   its yardstick, and at n = 1, 2, 31, 32, 33, 64, 95, 96, 127, 128 in
-   both types;
+   work, its share of that bound, and a library yardstick (the factor bit
+   for bit); the factor's Newton-Schulz variant (polish = 1) too, and the
+   unrefined solve error of polish 0 and 1 against complex128 thomas on
+   that operator; then all three, which are compiled per padded width, at
+   the edges of their templates and at the end of G (random diagonally
+   dominant systems); and ``gj_inverse``, the engines' Gauss-Jordan
+   inverse, against its plain version ``gj_inverse_blocked`` (the same
+   panels of 16) at the blocks they invert (one thomas line, B = 176, n =
+   95, in complex64 and complex128; bcr's level 0, B = 176 x 32) with
+   ``torch.linalg.inv`` as its yardstick, and at n = 1, 2, 31, 32, 33, 64,
+   95, 96, 127, 128 in both types;
 4. the main path: one batched potential value-and-grad of the flagship at
    full width, C = 8, on the fused kernels, with the launch counts of that
    run, held against the port's own complex128 thomas engine on the card;
@@ -100,9 +101,8 @@ SEED = 0
 FACTOR_REL_TOL = 1e-4  # f32 factor, other rounding order over 55 lines
 SWEEP_REL_TOL = 1e-5   # f32 sweeps given the same G
 POLISH_REL_TOL = 1e-5  # polished factor: its two products sum in another order
-# gj_inverse against its plain version (the same elimination order); the
-# two round each product alike, so this leaves room for the compiler's
-# contractions only
+# gj_inverse against its plain version (gj_inverse_blocked: the same panels
+# and pivot blocks); the rank-16 sums of each panel round in another order
 GJ_REL_TOL = {"complex64": 1e-4, "complex128": 1e-10}
 # n at the edges of gj_inverse's width templates (qp = 32, 64, 96, 128)
 GJ_EDGE_N = (1, 2, 31, 32, 33, 64, 95, 96, 127, 128)
@@ -220,6 +220,8 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
     if not bool(torch.isfinite(torch.view_as_real(G)).all()):
         fail("schur_factor produced non-finite values")
     abs_e, rel_e = rel_err(torch, G, G_plain)
+    if abs_e != 0.0:   # every product rounds where the plain version's does
+        fail(f"schur_factor is not bit-equal to its plain version: max abs error {abs_e:.3e}")
     flops = 8.0 * q ** 3 * nzi * B
     nbytes = B * nzi * (8 * q + 4 * (q - 1) + 8 * q * q) + 4 * B * (nzi - 1) * q
     results["schur_factor"] = dict(
@@ -244,8 +246,7 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
         rel=rel_e, abs=abs_e, tol=POLISH_REL_TOL,
         kernel_ms=time_ms(torch, lambda: FF.schur_factor(d, oy, oz, polish=1), 5),
         plain_ms=time_ms(torch, lambda: FF.schur_factor_plain(d, oy, oz, polish=1), 2),
-        library_ms=results["schur_factor"]["library_ms"],
-        library="the factor's: torch.linalg.inv per line (S.bt_factor)",
+        library_ms=None, library="none: no single PyTorch call computes it",
         flops=3 * flops, bytes=nbytes,
         bound_formula="max(24 q^3 nzi B / fp32 peak, (in + G out bytes) / bandwidth)")
     results["schur_factor_polish"]["solve"] = polish_solve_error(torch, d, oy, oz)
@@ -318,13 +319,15 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
 
 
 def gj_case(torch, A, reps: int) -> dict:
-    """gj_inverse on the batch A (B, n, n) against its plain version, with
-    the kernel's, the plain version's and torch.linalg.inv's times."""
+    """gj_inverse on the batch A (B, n, n) against its plain version
+    (gj_inverse_blocked at the kernel's panel), with the kernel's, the plain
+    version's and torch.linalg.inv's times."""
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
 
     B, n, _ = A.shape
+    panel = FF.gj_inverse_plan(n, A.dtype).panel
     X = FF.gj_inverse(A)
-    X_plain = FF.gj_inverse_nopivot(A)
+    X_plain = FF.gj_inverse_blocked(A, panel)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(torch.view_as_real(X)).all()):
         fail(f"gj_inverse produced non-finite values at {(B, n)} {A.dtype}")
@@ -337,7 +340,7 @@ def gj_case(torch, A, reps: int) -> dict:
         batch=B, n=n, dtype=dtype, rel=rel_e, abs=abs_e, tol=GJ_REL_TOL[dtype],
         rel_lu128=rel_lu,
         kernel_ms=time_ms(torch, lambda: FF.gj_inverse(A), reps),
-        plain_ms=time_ms(torch, lambda: FF.gj_inverse_nopivot(A), 2),
+        plain_ms=time_ms(torch, lambda: FF.gj_inverse_blocked(A, panel), 2),
         library_ms=time_ms(torch, lambda: torch.linalg.inv(A), reps),
         library="torch.linalg.inv (pivoted LU) on the same batch",
         flops=8.0 * n ** 3 * B, bytes=2 * A.numel() * A.element_size(),
@@ -387,7 +390,7 @@ def check_gj_edges(torch, dev):
             X = FF.gj_inverse(At)
             torch.cuda.synchronize()
             finite = bool(torch.isfinite(torch.view_as_real(X)).all())
-            _, rel = rel_err(torch, X, FF.gj_inverse_nopivot(At))
+            _, rel = rel_err(torch, X, FF.gj_inverse_blocked(At, FF.gj_inverse_plan(n, dtype).panel))
             name = str(dtype).removeprefix("torch.")
             rows.append([n, name, rel])
             if not finite or not rel <= GJ_REL_TOL[name]:

@@ -21,6 +21,10 @@ __device__ __forceinline__ float2 cfma(float2 a, float2 b, float2 acc) {
   return make_float2(acc.x + a.x * b.x - a.y * b.y,
                      acc.y + a.x * b.y + a.y * b.x);
 }
+__device__ __forceinline__ double2 cfma(double2 a, double2 b, double2 acc) {
+  return make_double2(acc.x + a.x * b.x - a.y * b.y,
+                      acc.y + a.x * b.y + a.y * b.x);
+}
 
 __device__ __forceinline__ float rabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double rabs(double x) { return fabs(x); }

@@ -1,7 +1,8 @@
 // In-place unpivoted Gauss-Jordan inversion of a matrix held in registers by
-// a block of TY x TX threads, shared by schur_factor.cu (each line's Schur
-// complement) and gj_inverse.cu (a batch of matrices), in complex64 (float2)
-// or complex128 (double2).
+// a block of TY x TX threads, one pivot a step: schur_factor.cu's
+// elimination of each line's Schur complement, in complex64 (float2) or
+// complex128 (double2).  gj_inverse.cu, which eliminates a panel of pivots
+// a step, shares its thread layout and helpers.
 //
 // Row r belongs to warp r % TY and column c to lane c % TX, so each thread
 // holds an RT x CT tile, indexed only by unrolled constant loops.  Only the

@@ -56,17 +56,26 @@
 //
 // Polish (a template variant; polish = 0 runs the code above unchanged).
 // Bound: two more complex q^3 products a step, 24 q^3 flops a line at
-// polish = 1, so 3x the factor's.  The Gauss-Jordan overwrote S_j, so each
-// step first rebuilds S_j into a QP x QP buffer of shared memory, by the
-// operations that formed it in registers (T_j, and G_{j-1} read back from
-// G); then each thread forms its tile of R = I - S_j G_j in registers (rows
-// of S_j from shared memory, columns of G_j from the G it just stored, in
-// L1/L2), writes R over the buffer, and forms G_j + G_j R (rows of G_j from
-// G, columns of R from the buffer), which it stores again and keeps in
-// registers for the next downdate.  Padded rows and columns stay zero.  The
-// buffer takes 8 QP^2 bytes (74 KB at QP = 96, two blocks still fit an SM).
-// A simple design that is right first: the products are plain loops with
-// one operand broadcast, not tiled, and G_j is read from L2.
+// polish = 1, so 3x the factor's.  The first design rebuilt S_j into one
+// QP x QP buffer of shared memory after the elimination (from T_j and
+// G_{j-1} read back from G), read G_j from L1/L2 inside both products' k
+// loops, one dependent load a step with nothing ahead, and passed over
+// G_j in device memory twice more (15.7 ms at the flagship on an H100 SXM,
+// against the factor's 7.0).  Up to QP = 96 the variant now keeps two buffers: S_j,
+// stored from registers just before the elimination (no rebuild, no read
+// of G_{j-1}), and G_j, staged once after it.  Both products are register
+// tiles from shared memory: each thread keeps its RT x CT accumulators and
+// reads RT + CT values a pivot (a pair of k in one 16-byte load of its
+// rows), so nothing in the k loop waits on L2.  R = I - S_j G_j goes over
+// the S_j buffer, G_j + G_j R stays in registers for the next downdate and
+// is stored once.  A second step (polish >= 2) rebuilds S_j as the first
+// design did.  The buffers take 16 QP^2 bytes (144 KB at QP = 96), so the
+// variant runs one block an SM there, with 128 registers a thread.  At
+// QP = 128 two buffers do not fit (256 KB): that width keeps the first
+// design (one 128 KB buffer, G_j from L2).  On the H100 SXM the products
+// now add ~1.9 ms a wave, near one SM's fp32 rate (13.4 ms at the
+// flagship): what bounds the variant is one block an SM, so 176 systems
+// take two waves of the one-pivot-a-barrier elimination above.
 
 #include <cuda_runtime.h>
 #include "cplx.cuh"
@@ -78,18 +87,14 @@ using gj::THREADS;
 using gj::TX;
 using gj::TY;
 
-// One Newton-Schulz step on line j: G_j <- G_j + G_j (I - S_j G_j), with
-// G_j stored in Gj (and in S, which it overwrites) and S_j rebuilt in Ssh
-// from the line's staged diag/offy/offz and G_{j-1} (Gprev, null at j = 0).
-// Ends with G_j + G_j R stored in Gj and held in S.
-template <int RT, int CT>
-__device__ __forceinline__ void ns_polish(float2 (&S)[RT][CT], float2* Ssh,
-                                          float2* Gj, const float2* Gprev,
+// S_j into Ssh (QP x QP), rebuilt by the operations that formed it in
+// registers: T_j from the line's staged diag/offy/offz, and G_{j-1} read
+// back from G (Gprev, null at j = 0).  Starts and ends on a barrier.
+template <int QP>
+__device__ __forceinline__ void rebuild_S(float2* Ssh, const float2* Gprev,
                                           const float2* dg, const float* oyv,
-                                          const float* ozv, int q, int lane,
-                                          int warp, int tid) {
-  constexpr int QP = RT * TY;
-  __syncthreads();   // G_j is stored; Ssh is free
+                                          const float* ozv, int q, int tid) {
+  __syncthreads();   // every read of Ssh is done
   for (int e = tid; e < QP * QP; e += THREADS) {
     const int r = e / QP, c = e % QP;
     float2 t = make_float2(0.f, 0.f);
@@ -107,6 +112,89 @@ __device__ __forceinline__ void ns_polish(float2 (&S)[RT][CT], float2* Ssh,
     Ssh[e] = t;
   }
   __syncthreads();
+}
+
+// acc += L R over k < q, L and R QP x QP in shared memory: each thread its
+// tile (rows warp + TY i of L, columns lane + TX cc of R), k in pairs (for
+// odd q the pair's second k is q, whose entries are zero padding).
+template <int RT, int CT>
+__device__ __forceinline__ void tile_product(float2 (&acc)[RT][CT],
+                                             const float2* L, const float2* R,
+                                             int q, int lane, int warp) {
+  constexpr int QP = RT * TY;
+#pragma unroll 2
+  for (int k = 0; k < q; k += 2) {
+    float2 b0[CT], b1[CT];
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) {
+      b0[cc] = R[k * QP + lane + TX * cc];
+      b1[cc] = R[(k + 1) * QP + lane + TX * cc];
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(L + (warp + TY * i) * QP + k);
+#pragma unroll
+      for (int cc = 0; cc < CT; ++cc) {
+        acc[i][cc] = cfma(make_float2(a.x, a.y), b0[cc], acc[i][cc]);
+        acc[i][cc] = cfma(make_float2(a.z, a.w), b1[cc], acc[i][cc]);
+      }
+    }
+  }
+}
+
+// One Newton-Schulz step from shared memory (QP <= 96): G_j in S on entry,
+// S_j in Ssh.  Stages G_j into Gsh, forms R = I - S_j G_j, writes it over
+// Ssh, and ends with G_j + G_j R in S.
+template <int RT, int CT>
+__device__ __forceinline__ void ns_polish_shared(float2 (&S)[RT][CT],
+                                                 float2* Ssh, float2* Gsh,
+                                                 int q, int lane, int warp) {
+  constexpr int QP = RT * TY;
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) {
+      Gsh[(warp + TY * i) * QP + lane + TX * cc] = S[i][cc];
+      S[i][cc] = make_float2(0.f, 0.f);
+    }
+  __syncthreads();   // G_j staged (and S_j in Ssh)
+  tile_product(S, Ssh, Gsh, q, lane, warp);
+  __syncthreads();   // every read of S_j is done
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = warp + TY * i;
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) {
+      const int c = lane + TX * cc;
+      float2 t = make_float2(0.f, 0.f);
+      if (r < q && c < q)
+        t = make_float2((r == c ? 1.f : 0.f) - S[i][cc].x, -S[i][cc].y);
+      Ssh[r * QP + c] = t;
+      S[i][cc] = make_float2(0.f, 0.f);
+    }
+  }
+  __syncthreads();   // R is in Ssh
+  tile_product(S, Gsh, Ssh, q, lane, warp);
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int cc = 0; cc < CT; ++cc) {
+      const float2 g = Gsh[(warp + TY * i) * QP + lane + TX * cc];
+      S[i][cc] = make_float2(g.x + S[i][cc].x, g.y + S[i][cc].y);
+    }
+}
+
+// One Newton-Schulz step of the first design (QP = 128): G_j <- G_j +
+// G_j (I - S_j G_j), with G_j stored in Gj (and in S, which it overwrites)
+// and S_j rebuilt in Ssh.  Ends with G_j + G_j R stored in Gj and held in S.
+template <int RT, int CT>
+__device__ __forceinline__ void ns_polish(float2 (&S)[RT][CT], float2* Ssh,
+                                          float2* Gj, const float2* Gprev,
+                                          const float2* dg, const float* oyv,
+                                          const float* ozv, int q, int lane,
+                                          int warp, int tid) {
+  constexpr int QP = RT * TY;
+  rebuild_S<QP>(Ssh, Gprev, dg, oyv, ozv, q, tid);
 
   // R = I - S_j G_j, accumulated in S
 #pragma unroll
@@ -198,7 +286,8 @@ schur_factor_kernel(const float2* __restrict__ diag,  // (B, nzi, q)
   float2* dg = smem + 4 * QP;      // [QP] diag of the line
   float* oyv = reinterpret_cast<float*>(smem + 5 * QP);  // [QP] offy of the line
   float* ozv = oyv + QP;           // [QP] offz between this line and the last
-  float2* Ssh = reinterpret_cast<float2*>(ozv + QP);  // [QP][QP] (POLISH only)
+  float2* Ssh = reinterpret_cast<float2*>(ozv + QP);  // [QP][QP] S_j (POLISH only)
+  float2* Gsh = Ssh + QP * QP;     // [QP][QP] G_j (POLISH, QP <= 96 only)
 
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int tid = warp * TX + lane;
@@ -247,10 +336,25 @@ schur_factor_kernel(const float2* __restrict__ diag,  // (B, nzi, q)
         S[i][cc] = t;
       }
     }
+    if constexpr (POLISH && QP <= 96) {
+      // S_j kept for the Newton-Schulz products; every read of Ssh from the
+      // last line ended before the barrier after staging
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int cc = 0; cc < CT; ++cc)
+          Ssh[(warp + TY * i) * QP + lane + TX * cc] = S[i][cc];
+    }
     // in-place Gauss-Jordan inverse, no pivoting; one barrier per step
     gj::invert(S, rowk, colk, lane, warp, q);
 
     float2* Gj = G_b + (size_t)j * qq;
+    if constexpr (POLISH && QP <= 96) {
+      for (int p = 0; p < polish; ++p) {
+        if (p > 0) rebuild_S<QP>(Ssh, j > 0 ? Gj - qq : nullptr, dg, oyv, ozv, q, tid);
+        ns_polish_shared(S, Ssh, Gsh, q, lane, warp);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
       const int r = warp + TY * i;
@@ -260,7 +364,7 @@ schur_factor_kernel(const float2* __restrict__ diag,  // (B, nzi, q)
         if (r < q && c < q) Gj[(size_t)r * q + c] = S[i][cc];
       }
     }
-    if constexpr (POLISH) {
+    if constexpr (POLISH && QP > 96) {
       for (int p = 0; p < polish; ++p)
         ns_polish(S, Ssh, Gj, j > 0 ? Gj - qq : nullptr, dg, oyv, ozv, q, lane,
                   warp, tid);
@@ -268,7 +372,8 @@ schur_factor_kernel(const float2* __restrict__ diag,  // (B, nzi, q)
   }
 }
 
-template <int RT, int CT, int MINB>
+// MINB blocks an SM for polish = 0, MINBP for the polish variant
+template <int RT, int CT, int MINB, int MINBP>
 int launch(const void* diag, const void* offy, const void* offz, void* G,
            int B, int nzi, int q, int smem, int polish, cudaStream_t stream) {
   const dim3 block(TX, TY);
@@ -279,10 +384,10 @@ int launch(const void* diag, const void* offy, const void* offz, void* G,
     return (int)cudaGetLastError();
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      schur_factor_kernel<RT, CT, MINB, true>,
+      schur_factor_kernel<RT, CT, MINBP, true>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  schur_factor_kernel<RT, CT, MINB, true><<<B, block, smem, stream>>>(
+  schur_factor_kernel<RT, CT, MINBP, true><<<B, block, smem, stream>>>(
       (const float2*)diag, (const float*)offy, (const float*)offz, (float2*)G,
       nzi, q, polish);
   return (int)cudaGetLastError();
@@ -291,22 +396,23 @@ int launch(const void* diag, const void* offy, const void* offz, void* G,
 }  // namespace
 
 // qp, threads and smem come from the launch plan (ops/fused_factor.py
-// schur_factor_plan, whose shared memory grows by the S_j buffer when
-// polish > 0); a plan this file does not compile is refused.
+// schur_factor_plan, whose shared memory grows by the S_j and G_j buffers
+// when polish > 0, S_j alone at qp = 128); a plan this file does not
+// compile is refused.
 extern "C" int hmc_schur_factor(const void* diag, const void* offy,
                                 const void* offz, void* G, int B, int nzi,
                                 int q, int qp, int threads, int smem,
                                 int polish, void* stream) {
-  const int want = 48 * qp + (polish > 0 ? 8 * qp * qp : 0);
+  const int want = 48 * qp + (polish > 0 ? (qp <= 96 ? 16 : 8) * qp * qp : 0);
   if (threads != THREADS || q < 1 || q > qp || polish < 0 || smem != want)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || nzi == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (qp) {
-    case 32: return launch<2, 1, 2>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
-    case 64: return launch<4, 2, 2>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
-    case 96: return launch<6, 3, 2>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
-    case 128: return launch<8, 4, 1>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
+    case 32: return launch<2, 1, 2, 2>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
+    case 64: return launch<4, 2, 2, 2>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
+    case 96: return launch<6, 3, 2, 1>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
+    case 128: return launch<8, 4, 1, 1>(diag, offy, offz, G, B, nzi, q, smem, polish, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

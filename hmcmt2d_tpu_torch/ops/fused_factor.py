@@ -91,7 +91,8 @@ class LaunchPlan(NamedTuple):
     ``threads = (lanes, warps)``; a ``tile`` of (rows, columns) of a line
     padded to ``qp`` falls to each thread (the factor) or to each warp and
     lane (the sweep); ``ring`` is the sweep's number of G slots (0 for the
-    factor)."""
+    factor); ``panel`` is the pivots a step of ``gj_inverse`` eliminates
+    (0 for the other kernels)."""
 
     q: int
     qp: int
@@ -100,6 +101,7 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int
     ring: int
     blocks_per_sm: int
+    panel: int = 0
 
     @property
     def n_threads(self) -> int:
@@ -122,16 +124,20 @@ def schur_factor_plan(q: int, polish: int = 0) -> LaunchPlan:
     r % 16 and column c on lane c % 32, so a thread holds a (qp/16, qp/32)
     complex tile.  Shared memory holds the double-buffered pivot row and
     column (4 qp complex) and the staged line: diag (qp complex), offy and
-    offz (qp floats each); with ``polish`` > 0 also the qp x qp complex
-    buffer of S_j that the Newton-Schulz steps read.  Two blocks per SM up
-    to qp = 96 (at most 64 registers a thread), one at qp = 128 (a
-    64-register tile).  The C entry point refuses another plan."""
+    offz (qp floats each).  With ``polish`` > 0 also the qp x qp complex
+    buffers the Newton-Schulz products read: S_j and G_j up to qp = 96,
+    S_j alone at qp = 128, where two do not fit (G_j is read from device
+    memory there).  Two blocks per SM up to qp = 96 (at most 64 registers
+    a thread), one at qp = 128 (a 64-register tile); the polish variant
+    takes one at qp = 96 too (its two buffers fill an SM, and a thread gets
+    128 registers).  The C entry point refuses another plan."""
     qp = _padded(q)
     smem = 5 * qp * COMPLEX_BYTES + 2 * qp * 4
     if polish > 0:
-        smem += qp * qp * COMPLEX_BYTES
+        smem += (2 if qp <= 96 else 1) * qp * qp * COMPLEX_BYTES
+    blocks = 2 if qp <= (64 if polish > 0 else 96) else 1
     return LaunchPlan(q, qp, (LANES, WARPS), (qp // WARPS, qp // LANES),
-                      smem, 0, 2 if qp <= 96 else 1)
+                      smem, 0, blocks)
 
 
 def bt_sweep_bwd_plan(q: int) -> LaunchPlan:
@@ -330,36 +336,64 @@ bt_sweep_bwd.launches = 0
 # ---------------------------------------------------------------------------
 
 GJ_DTYPES = (torch.complex64, torch.complex128)
+GJ_PANEL = 16   # pivots a step of gj_inverse (csrc/gj_inverse.cu NB), as JAX's block
 
 
 def gj_inverse_plan(n: int, dtype: torch.dtype = torch.complex64) -> LaunchPlan:
     """Plan of ``csrc/gj_inverse.cu``: schur_factor's thread tile (row r on
     warp r % 16, column c on lane c % 32, an (qp/16, qp/32) tile a thread)
-    for n x n matrices in ``dtype``, complex64 or complex128; shared memory
-    holds the double-buffered pivot row and column (4 qp complex).  Two
-    blocks an SM up to qp = 96 in complex64 and qp = 64 in complex128 (at
-    most 64 registers a thread), else one.  The C entry point refuses
-    another plan."""
+    for n x n matrices in ``dtype``, complex64 or complex128, eliminated
+    ``GJ_PANEL`` pivots a step.  Shared memory holds the panel's rows
+    (panel x qp complex), its columns (2 x qp x panel, double-buffered),
+    the pivot block's inverse (panel x panel) and R (2 x panel x qp,
+    double-buffered).  Two blocks an SM up to qp = 96 in complex64 and
+    qp = 64 in complex128 (at most 64 registers a thread), else one.  The C
+    entry point computes the same bytes and refuses another plan."""
     if dtype not in GJ_DTYPES:
         raise ValueError(f"gj_inverse takes complex64 or complex128, got {dtype}")
     qp = _padded(n)
+    nb = GJ_PANEL
     two = qp <= (96 if dtype == torch.complex64 else 64)
     return LaunchPlan(n, qp, (LANES, WARPS), (qp // WARPS, qp // LANES),
-                      4 * qp * dtype.itemsize, 0, 2 if two else 1)
+                      nb * (5 * qp + nb) * dtype.itemsize, 0, 2 if two else 1,
+                      nb)
+
+
+def gj_inverse_blocked(A: torch.Tensor, panel: int = GJ_PANEL) -> torch.Tensor:
+    """Panel-blocked unpivoted Gauss-Jordan inverse of (..., n, n), in
+    place: the order of ``csrc/gj_inverse.cu`` and of the JAX package's
+    ``inv_nopivot`` (``hmcmt2d_tpu/ops/blockinv.py``, its block of 16).
+    For each panel K of ``panel`` pivots (the last one cut at n):
+    R = inv(A[K, K]) A[K, :] with R[:, K] = inv(A[K, K]) (the pivot block
+    inverted by :func:`gj_inverse_nopivot`); then A[:, K] = 0,
+    A -= A_old[:, K] R, and A[K, :] = R."""
+    n = A.shape[-1]
+    X = A.clone()
+    for k0 in range(0, n, panel):
+        K = slice(k0, min(k0 + panel, n))
+        Pinv = gj_inverse_nopivot(X[..., K, K])
+        R = Pinv @ X[..., K, :]
+        R[..., :, K] = Pinv
+        col = X[..., :, K].clone()
+        X[..., :, K] = 0
+        X = X - col @ R
+        X[..., K, :] = R
+    return X
 
 
 def gj_inverse(A: torch.Tensor) -> torch.Tensor:
     """Batched unpivoted Gauss-Jordan inverse of A (..., n, n), complex64
     or complex128, 1 <= n <= Q_MAX: one launch of the CUDA kernel for a
     CUDA tensor, the batch axes collapsed to one (as the JAX package's
-    ``inv_c``); :func:`gj_inverse_nopivot` for a CPU tensor.
+    ``inv_c``); :func:`gj_inverse_blocked` at the kernel's panel for a CPU
+    tensor.
 
     No pivoting: stable only where every leading block keeps a nonzero
     pivot, as on the equilibrated MT operator (real part positive
     definite), which ``ops/solver.py::factorize`` always builds before it
     inverts a block.  A general matrix may need a pivot this never takes."""
     if _on_cpu(A):
-        return gj_inverse_nopivot(A)
+        return gj_inverse_blocked(A)
     if A.ndim < 2 or A.shape[-2] != A.shape[-1]:
         raise ValueError(f"gj_inverse takes square matrices, got {tuple(A.shape)}")
     n = A.shape[-1]
@@ -370,7 +404,8 @@ def gj_inverse(A: torch.Tensor) -> torch.Tensor:
     X = torch.empty_like(flat)
     err = lib.hmc_gj_inverse(flat.data_ptr(), X.data_ptr(), flat.shape[0], n,
                              plan.qp, plan.n_threads, plan.smem_bytes,
-                             int(A.dtype == torch.complex128), _stream())
+                             plan.panel, int(A.dtype == torch.complex128),
+                             _stream())
     _raise_on(err, "gj_inverse")
     gj_inverse.launches += 1
     return X.reshape(A.shape)

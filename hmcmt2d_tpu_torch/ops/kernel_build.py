@@ -33,7 +33,7 @@ _ENTRY_POINTS = {
     "hmc_schur_factor": (4, 7),   # B, nzi, q; plan: qp, threads, smem; polish
     "hmc_bt_sweep_fwd": (4, 7),   # B, nzi, q; plan: qp, ring, threads, smem
     "hmc_bt_sweep_bwd": (4, 7),   # B, nzi, q; plan: qp, ring, threads, smem
-    "hmc_gj_inverse": (2, 6),     # B, n; plan: qp, threads, smem; complex128
+    "hmc_gj_inverse": (2, 7),     # B, n; plan: qp, threads, smem, panel; complex128
 }
 
 _lib: ctypes.CDLL | None = None

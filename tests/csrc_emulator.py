@@ -1,0 +1,186 @@
+"""Run the CUDA sources of ``hmcmt2d_tpu_torch/csrc`` on the CPU.
+
+A thread-per-CUDA-thread emulation for tests: each source is compiled with
+g++ against a small ``cuda_runtime.h`` of this module's own, in which every
+CUDA thread of a block is an OS thread, ``__syncthreads``, ``__syncwarp``
+and the named barriers are barriers over those threads, a shuffle goes
+through a slot array of the warp, and dynamic shared memory is one
+buffer, filled with NaN before each block.  Blocks run one after another.
+Only the kernel launches (``kernel<<<grid, block, smem, stream>>>(...)``)
+are rewritten, into ``emu::launch(grid, block, smem, stream, kernel, ...)``,
+and each ``extern __shared__ T name[];`` into a pointer to that buffer;
+the rest of each source compiles as it is, so the emulation runs the
+kernels' own indexing, barriers and arithmetic (in the host's rounding,
+without nvcc's contractions).  It cannot say how fast a kernel is or
+whether nvcc accepts it.
+
+``build(out_dir)`` returns the loaded library, with the C entry points
+``hmc_gj_inverse`` and ``hmc_schur_factor`` of the sources.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "hmcmt2d_tpu_torch" / "csrc"
+SOURCES = ("gj_inverse.cu", "schur_factor.cu")
+SMEM_BYTES = 232_448
+
+RUNTIME_H = r"""
+#pragma once
+#include <math.h>
+#include <barrier>
+#include <condition_variable>
+#include <cstddef>
+#include <cstring>
+#include <mutex>
+#include <thread>
+#include <vector>
+#define __device__
+#define __global__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__
+#define __align__(x)
+#define __restrict__
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+struct double2 { double x, y; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline double2 make_double2(double a, double b) { return {a, b}; }
+extern thread_local dim3 threadIdx, blockIdx;
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <typename F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __frcp_rn(float x) { return 1.0f / x; }
+inline double __drcp_rn(double x) { return 1.0 / x; }
+namespace emu {
+extern unsigned char shared_mem[];
+struct Named {
+  std::mutex m;
+  std::condition_variable cv;
+  int arrived = 0;
+  long gen = 0;
+};
+extern std::barrier<>* block_bar;
+extern std::barrier<>* warp_bar[32];
+extern unsigned char slot[32][32][16];
+extern Named named[16];
+inline void named_arrive(int id, int count, bool wait) {
+  std::unique_lock<std::mutex> lk(named[id].m);
+  const long g = named[id].gen;
+  if (++named[id].arrived == count) {
+    named[id].arrived = 0;
+    ++named[id].gen;
+    named[id].cv.notify_all();
+  } else if (wait) {
+    named[id].cv.wait(lk, [&] { return named[id].gen != g; });
+  }
+}
+template <typename F, typename... Args>
+void launch(unsigned grid, dim3 block, int smem_bytes, cudaStream_t, F kernel, Args... args) {
+  if (smem_bytes > SMEM_BYTES) throw smem_bytes;
+  const unsigned nt = block.x * block.y;
+  for (unsigned b = 0; b < grid; ++b) {
+    std::memset(shared_mem, 0xff, SMEM_BYTES);
+    std::barrier<> bb(nt);
+    block_bar = &bb;
+    for (unsigned w = 0; w < block.y; ++w) warp_bar[w] = new std::barrier<>(block.x);
+    std::vector<std::thread> ts;
+    for (unsigned t = 0; t < nt; ++t)
+      ts.emplace_back([=]() {
+        threadIdx = dim3(t % block.x, t / block.x);
+        blockIdx = dim3(b);
+        kernel(args...);
+      });
+    for (auto& t : ts) t.join();
+    for (unsigned w = 0; w < block.y; ++w) delete warp_bar[w];
+  }
+}
+}  // namespace emu
+inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp_bar[threadIdx.y]->arrive_and_wait(); }
+template <typename T>
+T __shfl_sync(unsigned, T v, int src) {
+  const int w = threadIdx.y, l = threadIdx.x;
+  std::memcpy(emu::slot[w][l], &v, sizeof(T));
+  emu::warp_bar[w]->arrive_and_wait();
+  T out;
+  std::memcpy(&out, emu::slot[w][src & 31], sizeof(T));
+  emu::warp_bar[w]->arrive_and_wait();
+  return out;
+}
+""".replace("SMEM_BYTES", str(SMEM_BYTES))
+
+NAMED_BARRIER_H = r"""
+#pragma once
+inline void bar_arrive(int id, int count) { emu::named_arrive(id, count, false); }
+inline void bar_sync(int id, int count) { emu::named_arrive(id, count, true); }
+"""
+
+GLOBALS_CPP = r"""
+#include "cuda_runtime.h"
+thread_local dim3 threadIdx, blockIdx;
+namespace emu {
+alignas(16) unsigned char shared_mem[SMEM_BYTES];
+std::barrier<>* block_bar;
+std::barrier<>* warp_bar[32];
+unsigned char slot[32][32][16];
+Named named[16];
+}  // namespace emu
+""".replace("SMEM_BYTES", str(SMEM_BYTES))
+
+# kernel<...><<<grid, block, smem, stream>>>(  ->  emu::launch(grid, ..., kernel,
+LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>]*>)?)<<<(.*?)>>>\(")
+# extern __shared__ [__align__(16)] T name[];  ->  T* name = (T*)emu::shared_mem;
+SHARED = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];")
+
+
+def available() -> bool:
+    return shutil.which("g++") is not None
+
+
+def build(out_dir: Path) -> ctypes.CDLL:
+    """Compile the emulated sources into ``out_dir`` and load them."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "cuda_runtime.h").write_text(RUNTIME_H)
+    (out_dir / "named_barrier.cuh").write_text(NAMED_BARRIER_H)
+    (out_dir / "globals.cpp").write_text(GLOBALS_CPP)
+    units = [out_dir / "globals.cpp"]
+    for name in SOURCES:
+        text = LAUNCH.sub(r"emu::launch(\2, \1, ", (CSRC / name).read_text())
+        text = SHARED.sub(r"\1* \2 = reinterpret_cast<\1*>(emu::shared_mem);", text)
+        unit = out_dir / (Path(name).stem + ".cpp")
+        unit.write_text(text)
+        units.append(unit)
+    flags = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-w", "-I", str(out_dir),
+             "-I", str(CSRC), "-include", "cuda_runtime.h"]
+    procs = [subprocess.Popen(["g++", *flags, "-c", str(u), "-o", str(u.with_suffix(".o"))],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for u in units]
+    for u, p in zip(units, procs):
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f"g++ failed on {u.name}:\n{log}")
+    lib = out_dir / "libcsrc_emulated.so"
+    subprocess.run(["g++", "-shared", "-pthread", *[str(u.with_suffix(".o")) for u in units],
+                    "-o", str(lib)], check=True, capture_output=True)
+    dll = ctypes.CDLL(str(lib))
+    dll.hmc_gj_inverse.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    dll.hmc_schur_factor.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                                     + [ctypes.c_void_p])
+    dll.hmc_gj_inverse.restype = dll.hmc_schur_factor.restype = ctypes.c_int
+    return dll

@@ -1,16 +1,23 @@
 """The port's unpivoted Gauss-Jordan inverse (``ops/fused_factor.py``
-``gj_inverse``, on a CPU tensor its plain version ``gj_inverse_nopivot``,
-the elimination order of the CUDA kernel) against the JAX package's
+``gj_inverse``, on a CPU tensor its plain version ``gj_inverse_blocked``,
+the panel-16 order of the CUDA kernel) against the JAX package's
 (``hmcmt2d_tpu/ops/blockinv.py`` ``inv_nopivot``, panels of 16), on the
 same numpy matrices: the tridiagonal blocks of the equilibrated MT interior
 operator (the blocks the engines invert) and random diagonally dominant
 ones, at n on both sides of the 16-wide panel, batch 3.
 
-Tolerances (max abs error over max abs): 1e-12 in complex128 and 1e-5 in
-complex64 between the two packages, which take the same pivots, one at a
-time here and 16 at a time in JAX, and so differ by rounding only; the
-same against ``torch.linalg.inv`` (pivoted LU, another algorithm: in
-complex64 at 1e-5, eight times float32's epsilon grown over n = 95 steps).
+Tolerances (max abs error over max abs):
+- ``gj_inverse`` against JAX and against ``torch.linalg.inv`` (pivoted LU,
+  another algorithm): 1e-12 in complex128 and 1e-5 in complex64, eight
+  times float32's epsilon grown over n = 95 steps.
+- ``gj_inverse_blocked`` at panel 16 against JAX: 1e-14 in complex128 and
+  2e-6 in complex64.  Both take the same panels, the same pivot blocks and
+  the same two products a panel; they differ only in rounding: the pivot
+  block is inverted in place with the reciprocal pivot here, on an
+  augmented [P | I] with a division in JAX, and the products sum in
+  another order (read: at most 7e-16 and 4e-7 over three seeds).
+- ``gj_inverse_blocked`` against ``gj_inverse_nopivot`` (one pivot a
+  step): 1e-13 and 5e-6 (read: at most 1.4e-15 and 8e-7).
 """
 
 import numpy as np
@@ -30,6 +37,10 @@ from tests.torch_parity import relerr  # noqa: E402
 
 NS = [1, 5, 16, 17, 95]
 TOL = {np.complex128: 1e-12, np.complex64: 1e-5}
+# n on both sides of one and two panels of 16, and the flagship's 95
+NS_BLOCKED = [1, 5, 15, 16, 17, 31, 33, 95]
+TOL_BLOCKED_JAX = {np.complex128: 1e-14, np.complex64: 2e-6}
+TOL_BLOCKED_NOPIVOT = {np.complex128: 1e-13, np.complex64: 5e-6}
 DTYPES = [np.complex128, np.complex64]
 
 
@@ -99,3 +110,38 @@ def test_batch_axes_and_views():
     assert relerr(FF.gj_inverse(A), want) < 1e-12
     V = A.transpose(-1, -2).conj()
     assert relerr(FF.gj_inverse(V), torch.linalg.inv(V.resolve_conj())) < 1e-12
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["c128", "c64"])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("n", NS_BLOCKED)
+def test_blocked_matches_jax_inv_nopivot(n, kind, dtype):
+    """At panel 16 the plain version takes JAX's order: its panels, pivot
+    blocks and products."""
+    A = KINDS[kind](n, 60 + n).astype(dtype)
+    want = np.asarray(JB.inv_nopivot(jnp.asarray(A), block=16))
+    got = FF.gj_inverse_blocked(torch.as_tensor(A), panel=16)
+    assert got.dtype == torch.as_tensor(A).dtype and tuple(got.shape) == A.shape
+    assert relerr(got, want) < TOL_BLOCKED_JAX[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["c128", "c64"])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("n", NS_BLOCKED)
+def test_blocked_matches_nopivot_and_lu(n, kind, dtype):
+    """The blocked order against one pivot a step and against LU."""
+    A = torch.as_tensor(KINDS[kind](n, 70 + n).astype(dtype))
+    X = FF.gj_inverse_blocked(A)
+    assert relerr(X, FF.gj_inverse_nopivot(A)) < TOL_BLOCKED_NOPIVOT[dtype]
+    assert relerr(X.to(torch.complex128), torch.linalg.inv(A.to(torch.complex128))) < TOL[dtype]
+
+
+@pytest.mark.parametrize("panel", [1, 8, 16, 32, 128])
+def test_blocked_at_other_panels(panel):
+    """Any panel width inverts (1: one pivot a step; 128: one panel), in
+    complex128 to 1e-12 of LU; the CPU path takes the kernel's panel."""
+    A = torch.as_tensor(_operator_blocks(95, 80))
+    lu = torch.linalg.inv(A)
+    assert relerr(FF.gj_inverse_blocked(A, panel), lu) < 1e-12
+    assert FF.gj_inverse_plan(95).panel == FF.GJ_PANEL == 16
+    assert torch.equal(FF.gj_inverse(A), FF.gj_inverse_blocked(A, FF.GJ_PANEL))

@@ -65,7 +65,7 @@ def test_kernels_match_plain(cuda_device, B, nzi, q, seed):
     assert relerr(x, FF.bt_sweep_bwd_plain(G, oz, y)) < SWEEP_TOL
 
 
-@pytest.mark.parametrize("q", [31, 64, 95, 128])
+@pytest.mark.parametrize("q", [17, 31, 64, 95, 128])
 def test_polished_factor_matches_plain(cuda_device, q):
     """The factor's Newton-Schulz variant (polish = 1) against its plain
     version, relative to max |G| (the products sum in another order); the
@@ -79,6 +79,26 @@ def test_polished_factor_matches_plain(cuda_device, q):
     assert bool(torch.isfinite(torch.view_as_real(G1)).all())
     assert relerr(G1, FF.schur_factor_plain(d, oy, oz, polish=1)) < 1e-5
     assert relerr(G0, FF.schur_factor_plain(d, oy, oz)) < FACTOR_TOL
+
+
+def test_polished_factor_two_steps_matches_plain(cuda_device):
+    """polish = 2 at the flagship's width: the second step rebuilds S_j
+    (its products then read both shared buffers again)."""
+    d, oy, oz, _ = (t.to(cuda_device) for t in _system(3, 4, 95, 60))
+    G2 = FF.schur_factor(d, oy, oz, polish=2)
+    assert bool(torch.isfinite(torch.view_as_real(G2)).all())
+    assert relerr(G2, FF.schur_factor_plain(d, oy, oz, polish=2)) < 1e-5
+
+
+@pytest.mark.parametrize("B,nzi,q,seed", [(2, 6, 95, 2), (2, 3, 128, 3), (2, 3, 33, 7),
+                                          (4, 6, 75, 4)])
+def test_factor_polish0_is_bit_equal_to_plain(cuda_device, B, nzi, q, seed):
+    """polish = 0 rounds every product where the plain version does, at
+    the widths of the 64-, 96- and 128-wide tiles (the 32-wide tile differs
+    from it in the last bits, as it did before the polish variant's
+    redesign)."""
+    d, oy, oz, _ = (t.to(cuda_device) for t in _system(B, nzi, q, seed))
+    assert torch.equal(FF.schur_factor(d, oy, oz), FF.schur_factor_plain(d, oy, oz))
 
 
 def test_single_mode_fused_eval_launches(cuda_device):
@@ -230,22 +250,33 @@ GJ_TOL = {torch.complex64: 1e-4, torch.complex128: 1e-10}
 
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=["c64", "c128"])
-@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 64, 95, 96, 127, 128])
+@pytest.mark.parametrize("n", [1, 2, 15, 16, 17, 31, 32, 33, 64, 95, 96, 97, 127, 128])
 def test_gj_inverse_matches_plain(cuda_device, n, dtype):
-    """The gj_inverse kernel at the edges of its width templates against
-    its plain version (the same elimination order) and against LU, on
+    """The gj_inverse kernel at the edges of its panels and width templates
+    against its plain version (the same panel order) and against LU, on
     diagonally dominant matrices with two batch axes (collapsed to one
-    launch)."""
+    launch of 3 matrices)."""
     rng = np.random.default_rng(40 + n)
-    A = (0.3 * (rng.standard_normal((2, 3, n, n)) + 1j * rng.standard_normal((2, 3, n, n)))
+    A = (0.3 * (rng.standard_normal((3, 1, n, n)) + 1j * rng.standard_normal((3, 1, n, n)))
          + (4.0 + 0.5j) * np.sqrt(n) * np.eye(n))
     A = torch.as_tensor(A, dtype=dtype, device=cuda_device)
     FF.reset_launches()
     X = FF.gj_inverse(A)
     assert FF.launches()["gj_inverse"] == 1 and X.shape == A.shape
-    assert relerr(X, FF.gj_inverse_nopivot(A)) < GJ_TOL[dtype]
+    assert relerr(X, FF.gj_inverse_blocked(A, FF.gj_inverse_plan(n, dtype).panel)) < GJ_TOL[dtype]
     lu = torch.linalg.inv(A.to(torch.complex128))
     assert relerr(X.to(torch.complex128), lu) < (1e-5 if dtype == torch.complex64 else 1e-12)
+
+
+def test_gj_inverse_at_bcr_level0_batch(cuda_device):
+    """bcr's level 0 on the flagship: B = 5,632 matrices of n = 95, more
+    blocks than 21 waves of two an SM."""
+    rng = np.random.default_rng(41)
+    A = (0.3 * (rng.standard_normal((5632, 95, 95)) + 1j * rng.standard_normal((5632, 95, 95)))
+         + (4.0 + 0.5j) * np.sqrt(95) * np.eye(95))
+    A = torch.as_tensor(A, dtype=torch.complex64, device=cuda_device)
+    X = FF.gj_inverse(A)
+    assert relerr(X, FF.gj_inverse_blocked(A)) < GJ_TOL[torch.complex64]
 
 
 def test_gj_inverse_launch_checks(cuda_device):

@@ -43,16 +43,36 @@ def test_plan_refuses_widths_outside_the_kernels(kernel, q):
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=["c64", "c128"])
 @pytest.mark.parametrize("n", range(1, FF.Q_MAX + 1))
 def test_gj_inverse_plan_matches_the_kernel(n, dtype):
-    """The plan's bytes and blocks are what csrc/gj_inverse.cu takes: the
-    double-buffered pivot row and column, and two blocks an SM only where
-    the matrix tile takes at most 36 of the 64 registers a thread has there
-    (qp <= 96 in complex64, qp <= 64 in complex128)."""
+    """The plan's bytes and blocks are what csrc/gj_inverse.cu takes
+    (hmc_gj_inverse's ``want``): the panel's rows, its columns
+    (double-buffered), the pivot block's inverse and R (double-buffered),
+    panel (5 qp + panel) complex;
+    a panel of 16 (the kernel's NB); two blocks an SM only where the matrix
+    tile takes at most 36 of the 64 registers a thread has there (qp <= 96
+    in complex64, qp <= 64 in complex128)."""
     plan = FF.gj_inverse_plan(n, dtype)
     elem = 8 if dtype == torch.complex64 else 16
-    assert plan.smem_bytes == 4 * plan.qp * elem and plan.qp - n < 32
+    assert plan.panel == 16 and plan.qp - n < 32
+    assert plan.smem_bytes == plan.panel * (5 * plan.qp + plan.panel) * elem
     assert plan.threads == (FF.LANES, FF.WARPS) and plan.ring == 0
     tile_registers = plan.tile[0] * plan.tile[1] * elem // 4
     assert plan.blocks_per_sm == (2 if tile_registers <= 36 else 1)
+
+
+@pytest.mark.parametrize("polish", [0, 1, 2])
+@pytest.mark.parametrize("q", range(1, FF.Q_MAX + 1))
+def test_schur_factor_plan_matches_the_kernel(q, polish):
+    """The plan's bytes and blocks are what csrc/schur_factor.cu takes
+    (hmc_schur_factor's ``want`` and its launch's blocks an SM): 48 qp bytes
+    of pivot and line buffers; with polish, the S_j and G_j buffers (16 qp^2
+    bytes) up to qp = 96 and S_j alone (8 qp^2) at qp = 128; two blocks an
+    SM up to qp = 96, but for the polish variant only up to qp = 64."""
+    plan = FF.schur_factor_plan(q, polish)
+    qp = plan.qp
+    buffers = 0 if polish == 0 else (16 if qp <= 96 else 8) * qp * qp
+    assert plan.smem_bytes == 48 * qp + buffers
+    assert plan.blocks_per_sm == (2 if qp <= (64 if polish else 96) else 1)
+    assert plan.panel == 0 and plan.ring == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex32])

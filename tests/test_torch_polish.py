@@ -54,6 +54,22 @@ def test_polish_zero_is_the_main_path_factor():
         FF.schur_factor(d, oy, oz, polish=-1)
 
 
+def test_two_polish_steps_are_two_newton_schulz_steps():
+    """polish = 2 takes two steps on each line's inverse, with the line's
+    own S_j, before the next line's downdate (the kernel's polish >= 2
+    path rebuilds S_j for the second step)."""
+    d, oy, oz = (torch.as_tensor(np.array(a)) for a in _system((2,), 3, 9, 5)[0])
+    G = FF.schur_factor_plain(d, oy, oz, polish=2)
+    prev = None
+    for j in range(d.shape[1]):
+        S = FF._dense_line(d[:, j], oy[:, j])
+        if j > 0:
+            c = oz[:, j - 1]
+            S = S - (c[:, :, None] * c[:, None, :]) * prev
+        prev = FF.ns_polish(S, FF.ns_polish(S, FF.gj_inverse_nopivot(S)))
+        assert torch.equal(G[:, j], prev)
+
+
 def test_ns_polish_contracts_the_inverse_residual():
     """Quadratically, in complex128: I - S G' = (I - S G)^2."""
     rng = np.random.default_rng(1)
