@@ -78,6 +78,14 @@ Phases, each of which exits non-zero on failure:
    f32 --refine 6 --solver fused --inv gj run`` on the same files: warmup
    and the GN build on bcr+gj launch gj_inverse and no fused kernel, then
    each eval (1, 14, 14) and no gj_inverse;
+11. the port's bench (``hmcmt2d_tpu_torch.bench``) at full width, cut in
+   length: ``measure_ess`` at C = 8 with warmup 8, the Gauss-Newton mass,
+   re-adaptation 8 and a window of 16 samples, the chain sweep at C = 12
+   and 16 (8 samples each), both CPU baselines, and the bench's JSON line
+   with every key of ``bench.py``'s: finite positive rates, accept in
+   (0, 1], the adapted Gauss-Newton kernel, the card beside the numbers;
+   each timed window's batched evals (1, 14, 14) each, no ``gj_inverse``
+   launch in the run; TF32 off;
 6. a JSON summary of the kernels, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -509,6 +517,7 @@ def hmc_options(H):
 def flagship_inputs(torch, dev):
     """The main path's problem (realistic observations) and its models:
     (problem, m0, m (C, P) around m0 from numpy seed 1, m_ref)."""
+    from hmcmt2d_tpu_torch.bench import realistic
     from hmcmt2d_tpu_torch.entry import flagship_problem
 
     problem, m0 = flagship_problem(device=dev)
@@ -518,27 +527,6 @@ def flagship_inputs(torch, dev):
     m = (m0_t + 0.01 * torch.as_tensor(rng.standard_normal((C, len(m0))),
                                        dtype=torch.float32, device=dev))
     return problem, m0, m, m0_t.expand(C, -1)
-
-
-def realistic(problem, m0_t):
-    """Observations = the problem's own prediction at the start model plus
-    3% noise (complex for complex data; numpy seed 0), errors 3% of |obs|
-    (bench.py:45-66)."""
-    import torch
-
-    with torch.no_grad():
-        obs = problem.predict(m0_t).cpu().numpy()
-    if obs.shape != (problem.fwd.data.n_data,):
-        fail(f"prediction at the start model has shape {obs.shape}")
-    rng = np.random.default_rng(0)
-    if np.iscomplexobj(obs):
-        obs = obs.astype(np.complex128)
-        noise = rng.standard_normal(len(obs)) + 1j * rng.standard_normal(len(obs))
-        obs = obs * (1 + 0.03 * noise / np.sqrt(2))
-    else:       # rho / phase: real data
-        obs = obs.astype(np.float64) * (1 + 0.03 * rng.standard_normal(len(obs)))
-    return dataclasses.replace(problem, obs=obs,
-                               weights=1.0 / (0.03 * np.abs(obs)))
 
 
 STARTUP = """datafile:      obs.dat
@@ -1054,6 +1042,7 @@ def check_single_mode(torch, m, m_ref, eval_ms_phase4, smi):
     tipper errors 0.03 absolute; phase 4's models: C = 8, B = 88 systems),
     one potential value-and-grad on the kernels, launches counted, held to
     complex128 thomas on the card.  Returns {survey: launch counts}."""
+    from hmcmt2d_tpu_torch.bench import realistic
     from hmcmt2d_tpu_torch.entry import flagship_problem
     from hmcmt2d_tpu_torch.models.forward import SolveConfig, make_forward
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
@@ -1063,8 +1052,7 @@ def check_single_mode(torch, m, m_ref, eval_ms_phase4, smi):
     for comps, dtype in SINGLE_MODE_SURVEYS:
         name = "+".join(comps)
         problem, m0 = flagship_problem(device=m.device, data_comp=comps, data_type=dtype)
-        problem = realistic(problem, torch.as_tensor(m0, dtype=torch.float32,
-                                                     device=m.device))
+        problem = realistic(problem, m0)
         if "TZY" in comps:
             # the start model is 1-D, so its tipper is rounding noise: the
             # tipper (dimensionless) takes an absolute error of 0.03, the
@@ -1660,6 +1648,118 @@ def compare_warmup_engines(torch, problem, m0, smi, n_burn: int) -> None:
          "warmup_accept": [t["warmup_accept"], b["warmup_accept"]]})
 
 
+# phase 11: the port's bench (hmcmt2d_tpu_torch.bench) at cut lengths.
+# BENCH_KEYS: every key of bench.py's JSON line (its main and measure_ess)
+# and the bench's own ``device``
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline_note",
+              "cpu_samples_per_sec_scipy_1t", "cpu_samples_per_sec_native_mt",
+              "chains_sweep", "samples_per_sec", "ess_per_sec_per_chip",
+              "ess_median", "ess_median_first200", "ess_window_samples",
+              "kernel_mass", "solves_per_sec", "nfevals", "accept_rate",
+              "kernel_dt", "kernel_adapted", "flops_per_sec_est", "device")
+BENCH_POSITIVE = ("value", "ess_per_sec_per_chip", "solves_per_sec", "nfevals",
+                  "vs_baseline")
+BENCH_CUT = dict(n_samples=16, n_warm=8, gn_mass=True, n_readapt=8)
+BENCH_SWEEP = ((12, 8), (16, 8))       # (chains, samples)
+
+
+def window_launch_check(tag: str, w, init_eval: bool) -> dict:
+    """The timed window ``w`` of ``bench._measure``: its batched evals (one
+    a leapfrog step, the chains of an iteration sharing L, and with
+    ``init_eval`` the start model's, a window without warmup) each launched
+    (1, 14, 14) and no other kernel.  Returns its summary."""
+    evals = int(w.result.lf_steps[:, 0].sum()) + int(init_eval)
+    want = {"schur_factor": evals, "bt_sweep_fwd": 14 * evals,
+            "bt_sweep_bwd": 14 * evals}
+    got = {k: n for k, n in w.launches.items() if n or k in want}
+    if got != want or evals == 0:
+        fail(f"bench {tag}: window launches {w.launches} != {want} for {evals} evals")
+    return {"batched_evals": evals, "seconds": w.seconds,
+            "ms_per_batched_eval": w.seconds * 1e3 / evals, "launches": got}
+
+
+def check_bench(torch, smi, dev) -> dict:
+    """Phase 11: the port's bench pipeline on the flagship at full width, cut
+    in length: ``measure_ess`` at C = 8 (BENCH_CUT: warmup, the GN mass,
+    the re-adaptation, a priming run and the timed window), the chain
+    sweep (BENCH_SWEEP) and both CPU baselines, then the bench's line by
+    its ``report``.  The counts are set to 0 before ``measure_ess`` and read
+    after it; each timed window's own launches come from the bench.
+    Returns the counts of the ``measure_ess`` run."""
+    from hmcmt2d_tpu_torch import bench
+    from hmcmt2d_tpu_torch.entry import flagship_problem
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+
+    def factory():
+        return flagship_problem(device=dev)
+
+    windows = []
+    measure = bench._measure
+
+    def recorded(*args, **kw):
+        windows.append(measure(*args, **kw))
+        return windows[-1]
+
+    bench._measure = recorded
+    try:
+        torch.cuda.synchronize()
+        FF.reset_launches()
+        t0 = time.perf_counter()
+        stats = bench.measure_ess(factory, C, **BENCH_CUT)
+        torch.cuda.synchronize()
+        ess_s = time.perf_counter() - t0
+        counts = FF.launches()
+    finally:
+        bench._measure = measure
+    if len(windows) != 1:
+        fail(f"bench: measure_ess timed {len(windows)} windows, not 1")
+    sweep = {str(C): stats["samples_per_sec"]}
+    for c, n in BENCH_SWEEP:
+        windows.append(bench._measure(factory, c, n))
+        sweep[str(c)] = round(c * n / windows[-1].seconds, 4)
+    problem, _ = factory()
+    t0 = time.perf_counter()
+    cpu_sps = bench.measure_cpu_baseline(problem, n_freq=problem.fwd.data.n_freq)
+    cpu_native_sps = bench.measure_cpu_baseline_native(problem,
+                                                       n_freq=problem.fwd.data.n_freq)
+    cpu_s = time.perf_counter() - t0
+    line = bench.report(stats, sweep, cpu_sps, cpu_native_sps,
+                        bench.unit_of(problem, False), bench.device_name(dev))
+    tags = [f"C={C}"] + [f"sweep C={c}" for c, _ in BENCH_SWEEP]
+    summary = {"phase": 11, "card": smi, "cut": BENCH_CUT,
+               "sweep": [list(cn) for cn in BENCH_SWEEP],
+               "measure_ess_s": ess_s, "cpu_baselines_s": cpu_s,
+               "measure_ess_launches": counts,
+               "windows": {t: window_launch_check(t, w, i > 0)
+                           for i, (t, w) in enumerate(zip(tags, windows))},
+               "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                        torch.backends.cudnn.allow_tf32]}
+    say(summary)
+    say(line)
+    missing = [k for k in BENCH_KEYS if k not in line]
+    if missing:
+        fail(f"bench line lacks {missing}")
+    for k in BENCH_POSITIVE:
+        if not (np.isfinite(line[k]) and line[k] > 0):
+            fail(f"bench {k} = {line[k]}, not finite and positive")
+    if not 0.0 < line["accept_rate"] <= 1.0:
+        fail(f"bench accept_rate {line['accept_rate']} outside (0, 1]")
+    if line["kernel_adapted"] is not True or line["kernel_mass"] != "gauss-newton":
+        fail(f"bench kernel {line['kernel_mass']}, adapted {line['kernel_adapted']}")
+    if line["device"] != smi:
+        fail(f"bench device {line['device']!r} is not the card's {smi!r}")
+    lf = windows[0].result.lf_steps
+    if line["nfevals"] != int(lf.sum()) + C or not bool((lf == lf[:, :1]).all()):
+        fail(f"bench nfevals {line['nfevals']} against the window's leapfrog steps")
+    if counts.get("gj_inverse", 0) or counts.get("schur_factor_polish", 0):
+        fail(f"bench launched a kernel off its path: {counts}")
+    if any(counts[k] <= n for k, n in windows[0].launches.items() if n):
+        fail(f"bench: no launch outside the window in {counts}")
+    if any(summary["tf32"]):
+        fail("TF32 is on in the bench (matmul, cudnn)")
+    return counts
+
+
 def main() -> None:
     n_warmup = 0
     if sys.argv[1:]:
@@ -1819,6 +1919,9 @@ def main() -> None:
     check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s)
     gj_run_launches = check_gj_cli(torch, problem, m0, smi, phase7_s)
 
+    # phase 11: the bench's pipeline at cut lengths
+    bench_launches = check_bench(torch, smi, dev)
+
     # phase 6
     replaces = {
         "schur_factor": "hmcmt2d_tpu/ops/pallas_factor.py:137",
@@ -1853,6 +1956,7 @@ def main() -> None:
                 launches=gj_run_launches["gj_inverse"],
                 launches_path="phase 10c: hmcmt2d-torch " + " ".join(GJ_CLI_FLAGS) + " run",
                 launches_main_path=counts.get(k, 0),
+                launches_bench=bench_launches.get(k, 0),
                 launches_per_factor_and_eval=gj_engine_launches,
                 variants={v: {kk: r2[kk] for kk in ("batch", "n", "dtype", "abs", "rel",
                                                     "kernel_ms", "plain_ms", "bound_ms",
@@ -1864,7 +1968,8 @@ def main() -> None:
                          launches_sharded_per_rank={ph: [c[k] for c in counts_]
                                                     for ph, counts_ in sharded_launches.items()},
                          launches_single_mode={n: c[k] for n, c in single_launches.items()},
-                         launches_refresh_extend=tool_launches[k])
+                         launches_refresh_extend=tool_launches[k],
+                         launches_bench=bench_launches[k])
         kernels.append(entry)
     say({"kernels": kernels})
     say(smi_line())

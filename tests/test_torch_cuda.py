@@ -339,6 +339,35 @@ def test_run_inversion_main_phase_on_the_kernels(cuda_device):
     assert run.result.final.m.device.type == "cuda"
 
 
+def test_bench_measure_ess_launches(cuda_device, monkeypatch):
+    """The bench's ``measure_ess`` on the tiny flagship on the card (warmup,
+    the Gauss-Newton mass under thomas, re-adaptation, the timed window):
+    every batched eval of the window launches (1, 14, 14), and the run no
+    ``gj_inverse``."""
+    from hmcmt2d_tpu_torch import bench
+
+    windows = []
+    measure = bench._measure
+
+    def recorded(*args, **kw):
+        windows.append(measure(*args, **kw))
+        return windows[-1]
+
+    monkeypatch.setattr(bench, "_measure", recorded)
+    FF.reset_launches()
+    stats = bench.measure_ess(lambda: entry.flagship_problem(tiny=True, device=None),
+                              2, n_samples=8, n_warm=4, gn_mass=True, n_readapt=4)
+    counts = FF.launches()
+    (w,) = windows
+    evals = int(w.result.lf_steps[:, 0].sum())
+    assert w.launches == {"schur_factor": evals, "bt_sweep_fwd": 14 * evals,
+                          "bt_sweep_bwd": 14 * evals}
+    assert stats["nfevals"] == 2 * evals + 2
+    assert "gj_inverse" not in counts and counts["schur_factor"] > evals
+    assert stats["kernel_mass"] == "gauss-newton" and stats["kernel_adapted"]
+    assert 0.0 <= stats["accept_rate"] <= 1.0 and stats["samples_per_sec"] > 0
+
+
 def test_two_rank_sharded_run_on_card(cuda_device):
     """``dryrun_multichip(2)`` on one card: two gloo ranks sharing it on a
     (1 chain x 2 freq) mesh, the warmup, the engine switch, a continued
