@@ -30,17 +30,30 @@ Phases, each of which exits non-zero on failure:
    ``torch.linalg.inv`` as its yardstick, and at n = 1, 2, 31, 32, 33, 64,
    95, 96, 127, 128 in both types;
 4. the main path: one batched potential value-and-grad of the flagship at
-   full width, C = 8, on the fused kernels, with the launch counts of that
-   run, held against the port's own complex128 thomas engine on the card;
-5. three HMC samples at C = 8 driven by that gradient;
+   full width, C = 8, on the fused kernels, served by a CUDA graph
+   (``sampler/graphed.py``: captured in this first call, then replayed),
+   with the launch counts of that run, held against the port's own
+   complex128 thomas engine on the card;
+12. the graphed eval against the eager one (``make_potential_vg(...,
+   graphed=False)``) on phase 4's inputs and a second model, replayed in
+   turn: U, misfit, mnorm, pred and the gradient bit-exact where two eager
+   evals agree bit for bit, else within their spread (printed); the
+   medians of 20 graphed and 20 eager evals, in turns; the capture's
+   seconds and pool bytes; one profile of each (device ms, busy share,
+   host launch calls against graph launches; the replay must run our
+   kernels (1, 14, 14) times); (1, 14, 14) launches counted a replay;
+5. three HMC samples at C = 8 driven by that gradient, eager and graphed
+   from the same state: the same accepts, models within 1e-5;
 7. the inversion run through the command line, ``hmcmt2d-torch run``, on the
    full-width flagship written to files: 8 chains, warmup under the bcr
    engine (the default under the fused kernels), the Gauss-Newton mass, the switch to the fused kernels for the
    dense-mass re-adaptation and the main phase, checkpoints, then a resume
    to more samples; with the launch counts of each run held to its fused
-   gradient evaluations, and every output file checked;
+   gradient evaluations (graphed: one capture a run), and every output
+   file checked;
 8. the sharded sampler (``hmcmt2d_tpu_torch.parallel``) in ranks spawned on
-   the card, each group with its own wall limit: (a) one NCCL rank on a
+   the card, each group with its own wall limit (the sharded path is
+   eager, so it is held to phase 5's eager run): (a) one NCCL rank on a
    (1 x 1) mesh runs phase 5's samples and must equal them bit for bit;
    (b) two gloo ranks on a (2 chains x 1 freq) mesh run them at B = 88
    systems a rank, held to phase 5 within tolerance, with the two ranks'
@@ -84,8 +97,8 @@ Phases, each of which exits non-zero on failure:
    and 16 (8 samples each), both CPU baselines, and the bench's JSON line
    with every key of ``bench.py``'s: finite positive rates, accept in
    (0, 1], the adapted Gauss-Newton kernel, the card beside the numbers;
-   each timed window's batched evals (1, 14, 14) each, no ``gj_inverse``
-   launch in the run; TF32 off;
+   each timed window's batched evals graphed and (1, 14, 14) each, no
+   ``gj_inverse`` launch in the run; TF32 off;
 6. a JSON summary of the kernels, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -94,6 +107,7 @@ Imports nothing of JAX and nothing of the JAX package ``hmcmt2d_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -115,6 +129,10 @@ GJ_REL_TOL = {"complex64": 1e-4, "complex128": 1e-10}
 # n at the edges of gj_inverse's width templates (qp = 32, 64, 96, 128)
 GJ_EDGE_N = (1, 2, 31, 32, 33, 64, 95, 96, 127, 128)
 U_REL_TOL = 1e-3       # fused complex64 vs complex128 potential (see phase 4)
+# phase 5's graphed run against its eager run: the same kernels and ops on
+# the same inputs, so equal but for any atomics' order, which three
+# samples of L = 4 amplify little
+MODEL_REL_TOL_5 = 1e-5
 GRAD_COS_MIN = 0.999
 # (B, nzi, q): the coprod2 width, Q_MAX, more blocks than two waves, and
 # odd q with odd B nzi (the 16-byte span around G's last line would end
@@ -489,10 +507,17 @@ def profile_eval(torch, vg, m, m_ref) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
+    host_calls = {"kernel": 0, "graph": 0}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             kernels[e.key] = (us / 1e3, e.count)
+        elif e.device_type == torch.autograd.DeviceType.CPU:
+            # the runtime calls that launch: one a kernel, or one a graph
+            if "LaunchKernel" in e.key:
+                host_calls["kernel"] += e.count
+            elif "GraphLaunch" in e.key:
+                host_calls["graph"] += e.count
     total = sum(ms for ms, _ in kernels.values())
     ours = {}
     for short in ("schur_factor_kernel", "bt_sweep_fwd_kernel", "bt_sweep_bwd_kernel"):
@@ -502,9 +527,103 @@ def profile_eval(torch, vg, m, m_ref) -> dict:
     return {"profiled_wall_ms": wall_ms, "device_ms": total,
             "device_busy_share": total / wall_ms,
             "device_kernels": sum(n for _, n in kernels.values()),
+            "host_kernel_launch_calls": host_calls["kernel"],
+            "host_graph_launch_calls": host_calls["graph"],
             "ours": ours,
             "other_device_ms": total - sum(v["ms"] for v in ours.values()),
             "top": [{"kernel": k[:80], "ms": ms, "count": n} for k, (ms, n) in top]}
+
+
+# phase 12: the graphed eval against the eager one on phase 4's inputs
+GRAPH_TIMED_EVALS = 20
+EVAL_PER_REPLAY = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+OUTPUT_NAMES = ("U", "misfit", "mnorm", "pred", "grad")
+
+
+def _flat_outputs(out):
+    (U, (misfit, mnorm, pred)), g = out
+    return dict(zip(OUTPUT_NAMES, (U, misfit, mnorm, pred, g)))
+
+
+def _max_abs(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def check_graphed(torch, problem, vg, vg_eager, m, m_ref, smi) -> dict:
+    """Phase 12: phase 4's graphed eval (``vg``, captured there for (C, P))
+    against the eager one (``vg_eager``) on phase 4's models and on a second
+    model (numpy seed 2), each replayed in turn: U, misfit, mnorm, pred and
+    the gradient bit-exact where two eager evals agree bit for bit, else
+    within their spread; the medians of GRAPH_TIMED_EVALS evals of each, in
+    turns; the capture's seconds and pool bytes; one profile of each; and
+    the counts, (1, 14, 14) a replay.  Returns the summary."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+
+    rng = np.random.default_rng(2)
+    m2 = m + 0.01 * torch.as_tensor(rng.standard_normal(tuple(m.shape)),
+                                    dtype=m.dtype, device=m.device)
+    models = {"phase4": m, "seed2": m2}
+    graphed = {}
+    for _ in range(2):          # in turn, twice: inputs copied in, outputs fresh
+        for name, mm in models.items():
+            graphed.setdefault(name, []).append(_flat_outputs(vg(mm, m_ref)))
+    eager = {name: [_flat_outputs(vg_eager(mm, m_ref)) for _ in range(2)]
+             for name, mm in models.items()}
+    compare, bad = {}, []
+    for name in models:
+        e0, e1 = eager[name]
+        for k in OUTPUT_NAMES:
+            spread = _max_abs(e0[k], e1[k])
+            err = max(_max_abs(g[k], e0[k]) for g in graphed[name])
+            compare[f"{name}.{k}"] = {"graphed_vs_eager": err, "eager_spread": spread}
+            if err > spread:
+                bad.append(f"{name}.{k}: {err:.3e} against an eager spread {spread:.3e}")
+
+    graph_ms, eager_ms = [], []
+    for _ in range(GRAPH_TIMED_EVALS):
+        for fn, out in ((vg, graph_ms), (vg_eager, eager_ms)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(m, m_ref)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+
+    replays = 3
+    torch.cuda.synchronize()
+    FF.reset_launches()
+    for _ in range(replays):
+        vg(m, m_ref)
+    torch.cuda.synchronize()
+    counts = FF.launches()
+    want = {k: replays * n for k, n in EVAL_PER_REPLAY.items()}
+
+    prof_g = profile_eval(torch, vg, m, m_ref)
+    prof_e = profile_eval(torch, vg_eager, m, m_ref)
+    caps = {str(list(key[0])): {"capture_s": c.seconds, "pool_bytes": c.pool_bytes,
+                                "warmup_launches": c.warmup_launches,
+                                "launches_per_replay": c.launches}
+            for key, c in vg.captures.items()}
+    ours_g = {k: v["count"] for k, v in prof_g["ours"].items()}
+    summary = {"phase": 12, "graphed_eval": "CUDA graph of potential_value_and_grad",
+               "card": smi, "chains": m.shape[0], "compare": compare,
+               "graphed_ms": graph_ms, "eager_ms": eager_ms,
+               "graphed_median_ms": float(np.median(graph_ms)),
+               "eager_median_ms": float(np.median(eager_ms)),
+               "eager_over_graphed": float(np.median(eager_ms) / np.median(graph_ms)),
+               "captures": caps, "launches": counts, "replays": replays,
+               "profile_graphed": prof_g, "profile_eager": prof_e}
+    say(summary)
+    if bad:
+        fail("12: graphed against eager: " + "; ".join(bad))
+    if counts != want:
+        fail(f"12: launches {counts} != {want} for {replays} replays")
+    if any(c.launches != EVAL_PER_REPLAY for c in vg.captures.values()):
+        fail(f"12: a capture recorded {caps}, not {EVAL_PER_REPLAY} an eval")
+    if ours_g != {"schur_factor_kernel": 1, "bt_sweep_fwd_kernel": 14,
+                  "bt_sweep_bwd_kernel": 14} or prof_g["host_graph_launch_calls"] < 1:
+        fail(f"12: the profiled replay ran {ours_g} of our kernels in "
+             f"{prof_g['host_graph_launch_calls']} graph launches")
+    return summary
 
 
 def hmc_options(H):
@@ -589,6 +708,30 @@ def cli_run(torch, argv):
     return rc, FF.launches(), time.perf_counter() - t0, "".join(tee.lines)
 
 
+@contextlib.contextmanager
+def recorded_captures():
+    """Yields the list of the graphs (``sampler/graphed.py`` Capture) that
+    graphed evals capture inside the block."""
+    from hmcmt2d_tpu_torch.sampler.graphed import GraphedPotential
+
+    caps, capture = [], GraphedPotential._capture
+
+    def recording(self, m, m_ref):
+        caps.append(capture(self, m, m_ref))
+        return caps[-1]
+
+    GraphedPotential._capture = recording
+    try:
+        yield caps
+    finally:
+        GraphedPotential._capture = capture
+
+
+def capture_summary(caps) -> list:
+    return [{"chains": c.m.shape[0], "capture_s": c.seconds, "pool_bytes": c.pool_bytes}
+            for c in caps]
+
+
 def phase_seconds(log: str) -> dict:
     """Seconds per phase, summed from the ``[hmcmt2d]`` lines."""
     import re
@@ -643,11 +786,13 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
     base = ["run", str(d / "startup"), "--outdir", str(d), "--checkpoint", ck,
             "--checkpoint-every", "2"]
 
-    rc1, launches1, wall1, log1 = cli_run(torch, base)
+    with recorded_captures() as caps1:
+        rc1, launches1, wall1, log1 = cli_run(torch, base)
     with np.load(ck) as z:
         lf1 = z["lf_steps"][:, 0].astype(int)
-    rc2, launches2, wall2, log2 = cli_run(torch, base + ["--samples", str(n_resumed),
-                                                        "--resume"])
+    with recorded_captures() as caps2:
+        rc2, launches2, wall2, log2 = cli_run(torch, base + ["--samples", str(n_resumed),
+                                                            "--resume"])
     with np.load(ck) as z:
         ck_ = {k: z[k] for k in ("models", "stats", "accepts", "lf_steps",
                                  "n_warm", "dt", "start_stats")}
@@ -680,12 +825,17 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
         "misfit": {"start_mean": float(ck_["start_stats"][:, 0].mean()),
                    "last_mean": float(stats[-1, :, 0].mean())},
         "fused_evals": evals, "launches": [launches1, launches2],
+        "eval": "graphed" if caps1 and caps2 else "eager",
+        "graph_captures": [capture_summary(caps1), capture_summary(caps2)],
         "leapfrog_steps": lf[:, 0].tolist()}
     say(summary)
     if rc1 != 0 or rc2 != 0:
         fail(f"hmcmt2d-torch run returned {rc1}, {rc2}")
     if not switch:
         fail("hmcmt2d-torch run did not warm up on bcr and switch to the fused kernels")
+    if len(caps1) != 1 or len(caps2) != 1:
+        fail(f"the fused evals of the two runs captured {len(caps1)} and {len(caps2)} "
+             "graphs, not one each")
     if missing:
         fail(f"missing output files: {missing}")
     if not (np.isfinite(stats).all() and np.isfinite(models).all()):
@@ -1674,7 +1824,9 @@ def window_launch_check(tag: str, w, init_eval: bool) -> dict:
     got = {k: n for k, n in w.launches.items() if n or k in want}
     if got != want or evals == 0:
         fail(f"bench {tag}: window launches {w.launches} != {want} for {evals} evals")
-    return {"batched_evals": evals, "seconds": w.seconds,
+    if not w.graphed:
+        fail(f"bench {tag}: the window's evals were not graphed")
+    return {"batched_evals": evals, "eval": "graphed", "seconds": w.seconds,
             "ms_per_batched_eval": w.seconds * 1e3 / evals, "launches": got}
 
 
@@ -1794,6 +1946,7 @@ def main() -> None:
     from hmcmt2d_tpu_torch.ops import kernel_build
     from hmcmt2d_tpu_torch.sampler import hmc as H
     from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg
+    from hmcmt2d_tpu_torch.sampler.graphed import GraphedPotential
 
     # phase 2
     t0 = time.perf_counter()
@@ -1819,8 +1972,12 @@ def main() -> None:
     # phase 3
     kres = check_kernels(torch, problem, m, flops_peak, bw_peak)
 
-    # phase 4: the main path, counted
+    # phase 4: the main path (the graphed eval, captured in its first call),
+    # counted
     vg = make_potential_vg(problem, 1.0)
+    vg_eager = make_potential_vg(problem, 1.0, graphed=False)
+    if not isinstance(vg, GraphedPotential):
+        fail("make_potential_vg did not serve the fused engine on the card from a graph")
     torch.cuda.synchronize()
     FF.reset_launches()
     t0 = time.perf_counter()
@@ -1843,7 +2000,6 @@ def main() -> None:
         vg(m, m_ref)
         torch.cuda.synchronize()
         eval_ms.append((time.perf_counter() - t0) * 1e3)
-    say({"profile": profile_eval(torch, vg, m, m_ref)})
 
     ref = dataclasses.replace(problem, fwd=make_forward(
         problem.mesh, problem.fwd.data, SolveConfig(torch.complex128, 0, "thomas")))
@@ -1856,7 +2012,7 @@ def main() -> None:
     g64 = g.double()
     cos = (g64 * g_ref).sum(-1) / (g64.norm(dim=-1) * g_ref.norm(dim=-1))
     g_rel = float(((g64 - g_ref).norm(dim=-1) / g_ref.norm(dim=-1)).max())
-    say({"main_path": "potential_value_and_grad", "chains": C,
+    say({"main_path": "potential_value_and_grad", "eval": "graphed", "chains": C,
          "systems": C * problem.fwd.data.n_freq * 2,
          "U": U.cpu().tolist(), "U_complex128": U_ref.cpu().tolist(),
          "U_max_rel_err": u_rel, "U_rel_tol": U_REL_TOL,
@@ -1872,27 +2028,43 @@ def main() -> None:
         fail(f"gradient cosine {float(cos.min()):.6f} < {GRAD_COS_MIN}")
     del ref
 
-    # phase 5: a few HMC iterations on the main path
+    # phase 12: the graphed eval against the eager one, on phase 4's inputs
+    graph_summary = check_graphed(torch, problem, vg, vg_eager, m, m_ref, smi)
+
+    # phase 5: a few HMC iterations on the main path, eager (phase 8's
+    # reference) and graphed (the default), from the same state
     opts = hmc_options(H)
     mass = H.identity_mass(problem.n_param, torch.float32, dev)
     init = H.ChainState(m=m, grad=g, misfit=misfit, mnorm=mnorm, pred=pred)
     n_samples = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = H.run_hmc(vg, opts, mass, m, m_ref, n_samples, SEED, init_state=init)
-    torch.cuda.synchronize()
-    hmc_s = time.perf_counter() - t0
-    acc = float(res.accepts.float().mean())
-    finite = bool(torch.isfinite(res.stats).all() and torch.isfinite(res.models).all())
+    runs5 = {}
+    for kind, fn in (("eager", vg_eager), ("graphed", vg)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = H.run_hmc(fn, opts, mass, m, m_ref, n_samples, SEED, init_state=init)
+        torch.cuda.synchronize()
+        runs5[kind] = (r, time.perf_counter() - t0)
+    res, hmc_s = runs5["eager"]
+    res_g, _ = runs5["graphed"]
+    acc = float(res_g.accepts.float().mean())
+    finite = all(bool(torch.isfinite(r.stats).all() and torch.isfinite(r.models).all())
+                 for r, _ in runs5.values())
+    same_accepts = bool(torch.equal(res_g.accepts, res.accepts))
+    model_rel = float((res_g.models - res.models).abs().max() / res.models.abs().max())
     say({"hmc_samples": n_samples, "chains": C, "accept_rate": acc,
-         "stats_finite": finite, "leapfrog_steps": res.lf_steps[:, 0].tolist(),
-         "ms_per_sample": hmc_s * 1e3 / n_samples,
-         "samples_per_s_per_chip": C * n_samples / hmc_s,
-         "misfit_last": res.stats[-1, :, 0].cpu().tolist()})
+         "stats_finite": finite, "leapfrog_steps": res_g.lf_steps[:, 0].tolist(),
+         "ms_per_sample": {k: s * 1e3 / n_samples for k, (_, s) in runs5.items()},
+         "samples_per_s_per_chip": {k: C * n_samples / s for k, (_, s) in runs5.items()},
+         "graphed_accepts_equal_eager": same_accepts,
+         "graphed_model_max_rel_err": model_rel, "model_rel_tol": MODEL_REL_TOL_5,
+         "misfit_last": res_g.stats[-1, :, 0].cpu().tolist()})
     if not finite:
         fail("non-finite HMC stats or models")
     if not 0.0 <= acc <= 1.0:
         fail(f"accept rate {acc} outside [0, 1]")
+    if not same_accepts or not model_rel <= MODEL_REL_TOL_5:
+        fail(f"5: the graphed run's accepts equal the eager run's: {same_accepts}, "
+             f"models {model_rel:.3e} apart (limit {MODEL_REL_TOL_5})")
 
     import shutil
     import tempfile
@@ -1903,8 +2075,8 @@ def main() -> None:
         run_launches, phase7_s = check_cli_run(torch, problem, m0, smi, run_dir)
 
         # phase 8: the sharded sampler in spawned ranks
-        sharded_launches = check_sharded(torch, problem, m0, vg, opts, mass, m, m_ref,
-                                         res, hmc_s, smi)
+        sharded_launches = check_sharded(torch, problem, m0, vg_eager, opts, mass, m,
+                                         m_ref, res, hmc_s, smi)
 
         # phase 9: one-mode surveys, then the checkpoint tools on phase 7's run
         single_launches = check_single_mode(torch, m, m_ref, eval_ms, smi)
@@ -1964,6 +2136,7 @@ def main() -> None:
                           for v, r2 in r["variants"].items()})
         else:
             entry.update(launches=counts[k],
+                         launches_graphed_replays=graph_summary["launches"][k],
                          launches_cli_run=[c[k] for c in run_launches],
                          launches_sharded_per_rank={ph: [c[k] for c in counts_]
                                                     for ph, counts_ in sharded_launches.items()},

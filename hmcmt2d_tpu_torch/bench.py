@@ -62,6 +62,7 @@ from .sampler import adapt as A
 from .sampler import diagnostics as D
 from .sampler import hmc as H
 from .sampler.driver import gauss_newton_mass, make_factor_fn, make_potential_vg
+from .sampler.graphed import GraphedPotential
 from .tools import add_device_arg, device_of
 
 WARMUP_SEED = 7     # the warmup and re-adaptation draws (JAX: PRNGKey(7))
@@ -100,7 +101,9 @@ def _sync(device: torch.device) -> None:
 
 def _build(problem_factory, n_chains, seg=8, n_warm=0, gn_mass=False, n_readapt=56):
     """The problem (realistic observations), a runner ``run(n_samples,
-    seed) -> HMCResult`` of the adapted kernel, and its options.
+    seed) -> HMCResult`` of the adapted kernel, and its options;
+    ``run.graphed`` says whether a CUDA graph serves its evals (the fused
+    engine on the card, :mod:`.sampler.graphed`).
 
     With ``n_warm`` > 0, the production adaptation runs first: a
     dual-averaging dt + diagonal mass warmup (``sampler/adapt.py``); with
@@ -117,6 +120,7 @@ def _build(problem_factory, n_chains, seg=8, n_warm=0, gn_mass=False, n_readapt=
     amortize = problem.fwd.cfg.solver_method != "fused"
     dev = problem.device
     vg = make_potential_vg(problem, 1.0)
+    graphed = isinstance(vg, GraphedPotential)
     factor_fn = make_factor_fn(problem) if amortize else None
     opts = H.HMCOptions(dt=0.03, steps_lo=6, steps_hi=10,
                         log_sig_lo=float(np.log(1e-4)),
@@ -138,8 +142,8 @@ def _build(problem_factory, n_chains, seg=8, n_warm=0, gn_mass=False, n_readapt=
         opts = dataclasses.replace(opts, dt=float(info.dt))
         init_state = carry.state
         _sync(dev)
-        log(f"warmup {n_warm} iterations: {time.perf_counter() - t0:.3f} s, "
-            f"dt {opts.dt:.6g}")
+        log(f"warmup {n_warm} iterations ({eval_kind(graphed)}): "
+            f"{time.perf_counter() - t0:.3f} s, dt {opts.dt:.6g}")
 
         if gn_mass:
             t0 = time.perf_counter()
@@ -161,7 +165,7 @@ def _build(problem_factory, n_chains, seg=8, n_warm=0, gn_mass=False, n_readapt=
             opts = dataclasses.replace(opts, dt=float(info2.dt))
             init_state = carry.state
             _sync(dev)
-            log(f"re-adaptation {n_readapt} iterations: "
+            log(f"re-adaptation {n_readapt} iterations ({eval_kind(graphed)}): "
                 f"{time.perf_counter() - t0:.3f} s, dt {opts.dt:.6g}")
 
     def run(n_samples, seed):
@@ -173,7 +177,12 @@ def _build(problem_factory, n_chains, seg=8, n_warm=0, gn_mass=False, n_readapt=
         return H.run_hmc(vg, opts, mass, m, m_start, n_samples, seed,
                          init_state=init_state, factor_fn=factor_fn)
 
+    run.graphed = graphed
     return problem, run, opts
+
+
+def eval_kind(graphed: bool) -> str:
+    return "graphed" if graphed else "eager"
 
 
 class Window(NamedTuple):
@@ -184,10 +193,7 @@ class Window(NamedTuple):
     seconds: float               # host clock, between two synchronisations
     opts: H.HMCOptions
     launches: dict               # fused-kernel launches inside the window
-
-
-def _launch_delta(before: dict, after: dict) -> dict:
-    return {k: after.get(k, 0) - before.get(k, 0) for k in {**before, **after}}
+    graphed: bool                # whether a CUDA graph served the evals
 
 
 def _measure(problem_factory, n_chains, n_samples, seg=8, n_warm=0, gn_mass=False,
@@ -197,6 +203,7 @@ def _measure(problem_factory, n_chains, n_samples, seg=8, n_warm=0, gn_mass=Fals
     seg = min(seg, n_samples)
     problem, run, opts = _build(problem_factory, n_chains, seg=seg, n_warm=n_warm,
                                 gn_mass=gn_mass, n_readapt=n_readapt)
+    graphed = run.graphed
     dev = problem.device
     run(2 * seg, PRIME_SEED)
     _sync(dev)
@@ -205,13 +212,14 @@ def _measure(problem_factory, n_chains, n_samples, seg=8, n_warm=0, gn_mass=Fals
     res = run(n_samples, WINDOW_SEED)
     _sync(dev)
     seconds = time.perf_counter() - t0
-    launches = _launch_delta(before, FF.launches())
+    launches = FF.launch_delta(before, FF.launches())
     if not bool(torch.isfinite(res.stats).all()):
         raise FloatingPointError("non-finite sampler stats")
     evals = int(res.lf_steps[:, 0].sum()) + (n_warm == 0)   # + the start model's
     log(f"window C={n_chains} x {n_samples} samples: {seconds:.3f} s, {evals} "
-        f"batched evals, {seconds * 1e3 / evals:.2f} ms each; launches {launches}")
-    return Window(problem, res, seconds, opts, launches)
+        f"batched evals ({eval_kind(graphed)}), {seconds * 1e3 / evals:.2f} ms each; "
+        f"launches {launches}")
+    return Window(problem, res, seconds, opts, launches, graphed)
 
 
 def summarize(problem, models, accepts, lf_steps, seconds: float, kernel_dt: float,

@@ -376,12 +376,25 @@ class ForwardOperator:
     data: MTData
     rx: RxInterp
     cfg: SolveConfig
+    # device tensors built from the survey's numpy arrays, once for each key
+    # (:meth:`_cached`): a host-to-device copy in every eval would wait on
+    # the host, and a CUDA graph cannot capture one
+    _consts: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
+
+    def _cached(self, key: tuple, make) -> torch.Tensor:
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = make()
+        return t
 
     def _omegas(self, sigma2d: torch.Tensor, freqs=None) -> torch.Tensor:
         """Angular frequencies of ``freqs`` (default: every survey frequency)."""
         freqs = self.data.freqs if freqs is None else freqs
-        return 2.0 * np.pi * torch.as_tensor(freqs, dtype=sigma2d.dtype,
-                                             device=sigma2d.device)
+        key = ("omegas", np.asarray(freqs, np.float64).tobytes(), sigma2d.dtype,
+               sigma2d.device)
+        return self._cached(key, lambda: 2.0 * np.pi * torch.as_tensor(
+            freqs, dtype=sigma2d.dtype, device=sigma2d.device))
 
     def mode_solution(self, sigma2d: torch.Tensor, mode: str,
                       freqs=None) -> torch.Tensor:
@@ -496,7 +509,8 @@ class ForwardOperator:
         axes of ``sigma2d`` leading: (..., ndata)."""
         cube = self.response_cube(sigma2d, fac=fac)
         flat = cube.reshape(cube.shape[:-3] + (-1,))
-        idx = torch.as_tensor(self.data.flat_index, device=flat.device)
+        idx = self._cached(("flat_index", flat.device), lambda: torch.as_tensor(
+            self.data.flat_index, device=flat.device))
         return flat[..., idx]
 
 

@@ -10,7 +10,9 @@ Hopper (sources in ``hmcmt2d_tpu_torch/csrc``, built by
   kernel is held against on the card);
 * a wrapper that takes the plain version for a CPU tensor and launches the
   kernel for a CUDA tensor, or raises: it never falls back;
-* a launch counter, ``<wrapper>.launches``, raised by one at each launch.
+* a launch counter, ``<wrapper>.launches``, raised by one at each launch
+  (and, for a CUDA graph that recorded the launches, by
+  :func:`add_launches` at each replay).
 
 =================  ==============================================  ==========
 kernel (csrc)      replaces (hmcmt2d_tpu/ops/pallas_factor.py)      bound
@@ -414,6 +416,7 @@ def gj_inverse(A: torch.Tensor) -> torch.Tensor:
 gj_inverse.launches = 0
 
 KERNELS = (schur_factor, bt_sweep_fwd, bt_sweep_bwd)
+_BY_NAME = {k.__name__: k for k in KERNELS + (gj_inverse,)}
 
 
 def reset_launches() -> None:
@@ -434,6 +437,25 @@ def launches() -> dict[str, int]:
     if gj_inverse.launches:
         out["gj_inverse"] = gj_inverse.launches
     return out
+
+
+def launch_delta(before: dict[str, int], after: dict[str, int]) -> dict[str, int]:
+    """``after - before`` for each kernel of two :func:`launches` readings
+    (a key missing from one reads 0 there)."""
+    return {k: after.get(k, 0) - before.get(k, 0) for k in {**before, **after}}
+
+
+def add_launches(delta: dict[str, int]) -> None:
+    """Add ``delta`` (kernel name -> count, as :func:`launch_delta` gives
+    it) to the launch counters.  A CUDA graph's replay launches the kernels
+    its capture recorded without passing through the wrappers, so the
+    replaying code (``sampler/graphed.py``) adds the capture's delta here
+    once a replay."""
+    for name, n in delta.items():
+        if name == "schur_factor_polish":
+            schur_factor.polish_launches += n
+        else:
+            _BY_NAME[name].launches += n
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from ..models.forward import SolveConfig
 from ..models.posterior import InverseProblem, build_inverse_problem
 from . import adapt as A
 from . import checkpoint as CK
+from . import graphed as G
 from . import hmc as H
 
 
@@ -56,7 +57,8 @@ class InversionRun:
         return int(lf.sum()) + lf.shape[1]
 
 
-def make_potential_vg(problem: InverseProblem, reg: float):
+def make_potential_vg(problem: InverseProblem, reg: float,
+                      graphed: bool | None = None):
     """Batched (chains-leading) potential value-and-grad.
 
     Chains are an ordinary batch axis of the forward model (one merged
@@ -64,7 +66,17 @@ def make_potential_vg(problem: InverseProblem, reg: float):
     the gradient of the chain-summed potential: chains are independent.
     ``vg(m, m_ref, fac=None) -> ((U, (misfit, mnorm, pred)), grad)``, all
     detached; ``fac`` is a stale factor from :func:`make_factor_fn`.
+
+    ``graphed``: None serves the fused engine on a CUDA device from a CUDA
+    graph (:class:`.graphed.GraphedPotential`, which takes no ``fac``) and
+    every other problem eagerly; True asks for the graph and raises where
+    it cannot serve; False returns the eager closure (the counterpart of
+    ``jax.disable_jit``).
     """
+    if graphed is None:
+        graphed = G.unservable(problem) is None
+    if graphed:
+        return G.GraphedPotential(problem, reg)
 
     def vg(m, m_ref, fac=None):
         return problem.potential_value_and_grad(m, m_ref, reg, fac=fac)
@@ -83,7 +95,9 @@ class BatchedSampler:
     :func:`run_inversion` drives either one."""
 
     def __init__(self, problem: InverseProblem, reg: float, amortize: bool = True):
-        self.potential_vg = make_potential_vg(problem, reg)
+        # a stale factor goes to the eager eval: the graphed one takes none
+        self.potential_vg = make_potential_vg(problem, reg,
+                                              graphed=False if amortize else None)
         self.factor_fn = make_factor_fn(problem) if amortize else None
 
     def carry_init(self, opts, m0, m_ref) -> A.WarmupCarry:

@@ -423,3 +423,73 @@ def test_two_ranks_that_cannot_shard_run_on_rank0_on_card(cuda_device, tmp_path)
     assert "WARNING: cannot shard chains=3" in outs[0][0] and "done in" in outs[0][0]
     assert "[hmcmt2d]" not in outs[1][0]
     assert (tmp_path / "hmcstatistics_id3.log").exists()
+
+
+def _graphed_pair(cuda_device, n_chains, seed):
+    """The tiny flagship on the card under the fused kernels, its graphed
+    and its eager eval, and two different (n_chains, P) models."""
+    from hmcmt2d_tpu_torch.sampler.graphed import GraphedPotential
+
+    gpu, m0 = entry.flagship_problem(tiny=True, device=cuda_device)
+    vg = make_potential_vg(gpu, 1.0)
+    assert isinstance(vg, GraphedPotential)
+    rng = np.random.default_rng(seed)
+    ms = [torch.as_tensor(m0 + 0.1 * rng.standard_normal((n_chains, len(m0))),
+                          dtype=torch.float32, device=cuda_device) for _ in range(2)]
+    return vg, make_potential_vg(gpu, 1.0, graphed=False), ms
+
+
+def _flat(out):
+    (U, (misfit, mnorm, pred)), g = out
+    return U, misfit, mnorm, pred, g
+
+
+def test_graphed_eval_equals_eager_on_two_models(cuda_device):
+    """Two models replayed in turn: each replay reads its own inputs (they
+    are copied in) and returns fresh outputs, equal to the eager eval's
+    (the same kernels and ops on the same inputs)."""
+    vg, eager, (ma, mb) = _graphed_pair(cuda_device, 2, 3)
+    outs = [(mm, _flat(vg(mm, ma))) for mm in (ma, mb, ma, mb)]
+    for mm, got in outs:
+        want = _flat(eager(mm, ma))
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert not torch.equal(outs[0][1][0], outs[1][1][0])
+    assert len(vg.captures) == 1
+
+
+def test_graphed_replay_counts_one_eval(cuda_device):
+    """The capture's warm-ups and recording leave the counts as they were;
+    each replay adds (1, 14, 14)."""
+    vg, _, (ma, _mb) = _graphed_pair(cuda_device, 2, 4)
+    FF.reset_launches()
+    vg(ma, ma)
+    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+    for k in (2, 3):
+        vg(ma, ma)
+        assert FF.launches() == {"schur_factor": k, "bt_sweep_fwd": 14 * k,
+                                 "bt_sweep_bwd": 14 * k}
+    (cap,) = vg.captures.values()
+    assert cap.launches == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+    assert cap.warmup_launches["schur_factor"] == 3 and cap.pool_bytes > 0
+
+
+def test_graphed_second_shape_captures_its_own_graph(cuda_device):
+    """C = 2, then C = 3: a graph (and pool) each, and C = 2 still replays
+    right after C = 3 was captured."""
+    vg, eager, (m2, _) = _graphed_pair(cuda_device, 2, 5)
+    _, _, (m3, _) = _graphed_pair(cuda_device, 3, 6)
+    for mm in (m2, m3, m2):
+        for a, b in zip(_flat(vg(mm, mm)), _flat(eager(mm, mm))):
+            assert torch.equal(a, b)
+    assert sorted(k[0] for k in vg.captures) == [(2, m2.shape[1]), (3, m3.shape[1])]
+    pools = [c.graph.pool() for c in vg.captures.values()]
+    assert pools[0] != pools[1]
+
+
+def test_graphed_eval_refuses_a_stale_factor(cuda_device):
+    vg, _, (ma, _) = _graphed_pair(cuda_device, 2, 7)
+    fac = vg.problem.factor_state(ma)
+    with pytest.raises(ValueError, match="stale factor"):
+        vg(ma, ma, fac)
+    assert vg.captures == {}
