@@ -5,11 +5,13 @@ Run from the root of a checkout, on a machine with one CUDA GPU and nvcc:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --warmup-engines [N]`` runs phases 1-2 and then,
-in place of the rest, the hybrid run's warmup under thomas and under bcr
-at N iterations (300, the production length) with the production
-leapfrog keys, and prints each engine's warmup seconds, adapted dt,
-accept rate and misfit.
+``python3 chip_smoke.py --warmup-engines [N] [--with-eager]`` runs phases
+1-2 and then, in place of the rest, the hybrid run's warmup under thomas
+and under bcr (each served from its graphs, the default on the card; with
+``--with-eager`` each also eagerly, right after, in the same call) at N
+iterations (300, the production length) with the production leapfrog
+keys, and prints each run's warmup seconds, adapted dt, accept rate and
+misfit, and the graphs released at the switch.
 
 Phases, each of which exits non-zero on failure:
 
@@ -46,14 +48,17 @@ Phases, each of which exits non-zero on failure:
    from the same state: the same accepts, models within 1e-5;
 7. the inversion run through the command line, ``hmcmt2d-torch run``, on the
    full-width flagship written to files: 8 chains, warmup under the bcr
-   engine (the default under the fused kernels), the Gauss-Newton mass, the switch to the fused kernels for the
-   dense-mass re-adaptation and the main phase, checkpoints, then a resume
-   to more samples; with the launch counts of each run held to its fused
-   gradient evaluations (graphed: one capture a run), and every output
-   file checked;
+   engine (the default under the fused kernels) served from its graphs
+   (fresh eval, factor, stale eval; released at the switch), the
+   Gauss-Newton mass, the switch to the fused kernels for the dense-mass
+   re-adaptation and the main phase, checkpoints, then a resume to more
+   samples; with the launch counts of each run held to its fused gradient
+   evaluations (graphed: one fused capture a run), and every output file
+   checked;
 8. the sharded sampler (``hmcmt2d_tpu_torch.parallel``) in ranks spawned on
    the card, each group with its own wall limit (the sharded path is
-   eager, so it is held to phase 5's eager run): (a) one NCCL rank on a
+   eager, so it is held to phase 5's eager run, and 8c to the eager single
+   process, ``graphed=False``): (a) one NCCL rank on a
    (1 x 1) mesh runs phase 5's samples and must equal them bit for bit;
    (b) two gloo ranks on a (2 chains x 1 freq) mesh run them at B = 88
    systems a rank, held to phase 5 within tolerance, with the two ranks'
@@ -71,7 +76,8 @@ Phases, each of which exits non-zero on failure:
    ``refresh_extend`` (launches counted against its fused evals), the
    summary of its checkpoint, and ``map_fit``;
 10. the other engines of ``ops/solver.py`` (torch ops, as XLA ops in the
-   JAX package; their inverses by LU or by ``gj_inverse``): (a) at the
+   JAX package; their inverses by LU or by ``gj_inverse``), eager
+   (``graphed=False``; phase 13 serves them from graphs): (a) at the
    flagship (phase 4's models), an unrefined complex64 factor-solve under
    thomas, bcr and thomas_blocked, each with LU and with gj, against the
    complex128 solve, each within 10x thomas+lu's; all six refined 6 times
@@ -91,6 +97,21 @@ Phases, each of which exits non-zero on failure:
    f32 --refine 6 --solver fused --inv gj run`` on the same files: warmup
    and the GN build on bcr+gj launch gj_inverse and no fused kernel, then
    each eval (1, 14, 14) and no gj_inverse;
+13. the warmup engines served from their CUDA graphs (``sampler/graphed.py``:
+   the fresh eval, the trajectory-amortised factor and the stale-factor
+   eval): (a) thomas, bcr and thomas_blocked, each with LU and with gj,
+   complex64 refined 6 times (10 against a stale factor), on phase 4's
+   models and phase 12's second one in turn, graphed against eager: U,
+   misfit, mnorm, pred and the gradient of the fresh and the stale eval
+   bit for bit where two eager rounds agree bit for bit, else within their
+   spread; the medians of each call's ms; a profile of each (device ms,
+   busy share; host launch calls of a graphed eval in single digits);
+   capture seconds and pool bytes; gj_inverse 55 (thomas, thomas_blocked)
+   or 6 (bcr) times a factor replay and a fresh eval, none a stale eval,
+   none under LU; (b) a cut warmup (8 iterations at ``timestep: 6 10``
+   from one seed, through ``BatchedSampler``) graphed against eager on
+   bcr+lu, thomas+lu and bcr+gj: the same accepts and leapfrog steps, dt
+   and models within 1e-5, and the seconds of each;
 11. the port's bench (``hmcmt2d_tpu_torch.bench``) at full width, cut in
    length: ``measure_ess`` at C = 8 with warmup 8, the Gauss-Newton mass,
    re-adaptation 8 and a window of 16 samples, the chain sweep at C = 12
@@ -599,7 +620,7 @@ def check_graphed(torch, problem, vg, vg_eager, m, m_ref, smi) -> dict:
 
     prof_g = profile_eval(torch, vg, m, m_ref)
     prof_e = profile_eval(torch, vg_eager, m, m_ref)
-    caps = {str(list(key[0])): {"capture_s": c.seconds, "pool_bytes": c.pool_bytes,
+    caps = {str(list(c.inputs[0].shape)): {"capture_s": c.seconds, "pool_bytes": c.pool_bytes,
                                 "warmup_launches": c.warmup_launches,
                                 "launches_per_replay": c.launches}
             for key, c in vg.captures.items()}
@@ -710,15 +731,16 @@ def cli_run(torch, argv):
 
 @contextlib.contextmanager
 def recorded_captures():
-    """Yields the list of the graphs (``sampler/graphed.py`` Capture) that
-    graphed evals capture inside the block."""
+    """Yields the list of (engine, Capture) of the graphs
+    (``sampler/graphed.py``) that graphed potentials capture inside the
+    block, in order."""
     from hmcmt2d_tpu_torch.sampler.graphed import GraphedPotential
 
     caps, capture = [], GraphedPotential._capture
 
-    def recording(self, m, m_ref):
-        caps.append(capture(self, m, m_ref))
-        return caps[-1]
+    def recording(self, kind, fn, inputs):
+        caps.append((self.problem.fwd.cfg.solver_method, capture(self, kind, fn, inputs)))
+        return caps[-1][1]
 
     GraphedPotential._capture = recording
     try:
@@ -728,8 +750,11 @@ def recorded_captures():
 
 
 def capture_summary(caps) -> list:
-    return [{"chains": c.m.shape[0], "capture_s": c.seconds, "pool_bytes": c.pool_bytes}
-            for c in caps]
+    return [dict(engine=engine, **c.summary()) for engine, c in caps]
+
+
+def capture_kinds(caps) -> list:
+    return [f"{engine}:{c.kind}" for engine, c in caps]
 
 
 def phase_seconds(log: str) -> dict:
@@ -774,8 +799,10 @@ def output_names(n_chains: int) -> list[str]:
 
 def check_cli_run(torch, problem, m0, smi, d: Path):
     """Phase 7: ``hmcmt2d-torch run`` on the flagship, written to files in
-    ``d``, then resumed; the warmup runs on bcr, and every fused gradient
-    eval launches the factor once and each sweep 14 times.  Returns the launch counts of the two runs and
+    ``d``, then resumed; the warmup runs on bcr from its graphs (fresh
+    eval, factor, stale eval; released at the switch), and every fused
+    gradient eval launches the factor once and each sweep 14 times.
+    Returns the launch counts of the two runs and
     the first run's phase seconds; the files and the checkpoint
     ``d / "run.ckpt.npz"`` stay for phase 9b."""
     from hmcmt2d_tpu_torch.sampler import diagnostics as D
@@ -811,6 +838,7 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
              for n, s in zip(n_main, secs)]
     rhat = D.split_rhat(models[n_warm:])
     switch = "hybrid: warmup engine bcr -> main engine fused" in log1
+    released = log1.count("released the warmup engine's")
     summary = {
         "cli_run": "hmcmt2d-torch run (flagship, full width, from files)",
         "card": smi, "chains": n_chains, "rc": [rc1, rc2], "switch_logged": switch,
@@ -827,15 +855,20 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
         "fused_evals": evals, "launches": [launches1, launches2],
         "eval": "graphed" if caps1 and caps2 else "eager",
         "graph_captures": [capture_summary(caps1), capture_summary(caps2)],
+        "warmup_graphs_released": released,
         "leapfrog_steps": lf[:, 0].tolist()}
     say(summary)
     if rc1 != 0 or rc2 != 0:
         fail(f"hmcmt2d-torch run returned {rc1}, {rc2}")
     if not switch:
         fail("hmcmt2d-torch run did not warm up on bcr and switch to the fused kernels")
-    if len(caps1) != 1 or len(caps2) != 1:
-        fail(f"the fused evals of the two runs captured {len(caps1)} and {len(caps2)} "
-             "graphs, not one each")
+    # run 1: bcr's fresh eval (the chain init), factor and stale eval in
+    # warmup, released at the switch, then the fused eval; the resumed run
+    # only the fused eval
+    want_caps = [["bcr:eval", "bcr:factor", "bcr:stale", "fused:eval"], ["fused:eval"]]
+    if [capture_kinds(caps1), capture_kinds(caps2)] != want_caps or released != 3:
+        fail(f"the two runs captured {[capture_kinds(caps1), capture_kinds(caps2)]}, not "
+             f"{want_caps}, and released {released} warmup graphs at the switch, not 3")
     if missing:
         fail(f"missing output files: {missing}")
     if not (np.isfinite(stats).all() and np.isfinite(models).all()):
@@ -1076,7 +1109,7 @@ def check_sharded(torch, problem, m0, vg, opts, mass, m, m_ref, res5, hmc5_s, sm
     c0 = outs_c[0]
     cmp = {}
     for name, vg_t in (("serial_mesh", serial_mesh_vg(torch, problem, 2, 2)),
-                       ("plain", make_potential_vg(problem, 1.0)),
+                       ("plain", make_potential_vg(problem, 1.0, graphed=False)),
                        ("control_prior_scale",
                         serial_mesh_vg(torch, problem, 2, 2, "prior_scale")),
                        ("control_freq_block",
@@ -1227,7 +1260,8 @@ def check_single_mode(torch, m, m_ref, eval_ms_phase4, smi):
         prof = profile_eval(torch, vg, m, m_ref)
         ref = dataclasses.replace(problem, fwd=make_forward(
             problem.mesh, problem.fwd.data, SolveConfig(torch.complex128, 0, "thomas")))
-        (U_ref, _), g_ref = make_potential_vg(ref, 1.0)(m.double(), m_ref.double())
+        (U_ref, _), g_ref = make_potential_vg(ref, 1.0, graphed=False)(m.double(),
+                                                                       m_ref.double())
         u_rel = float(((U - U_ref).abs() / U_ref.abs()).max())
         g64 = g.double()
         cos = float(((g64 * g_ref).sum(-1) / (g64.norm(dim=-1) * g_ref.norm(dim=-1))).min())
@@ -1448,7 +1482,7 @@ def check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi):
         _, raw = rel_err(torch, S.factor_solve(fac, b).to(torch.complex128), x_ref)
         del fac, factor
         prob = engine_problem(problem, SolveConfig(torch.complex64, 6, method, inv))
-        vg = make_potential_vg(prob, 1.0)
+        vg = make_potential_vg(prob, 1.0, graphed=False)     # phase 10 measures eager
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         FF.reset_launches()
@@ -1504,7 +1538,7 @@ def check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi):
         torch.cuda.synchronize()
         FF.reset_launches()
         t0 = time.perf_counter()
-        (U, _), g = make_potential_vg(prob, 1.0)(m.double(), m_ref.double())
+        (U, _), g = make_potential_vg(prob, 1.0, graphed=False)(m.double(), m_ref.double())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         counts = FF.launches()
@@ -1738,6 +1772,206 @@ def check_gj_cli(torch, problem, m0, smi, phase7_s) -> dict:
     return run["launches"]
 
 
+# phase 13: the warmup engines served from their graphs (sampler/graphed.py)
+ROUNDS_13 = 2           # rounds over both models, graphed and eager in turn
+WARMUP_ENGINES_13 = (("bcr", "lu"), ("thomas", "lu"), ("bcr", "gj"))
+N_WARM_13 = 8           # warmup iterations of 13b
+# 13b's graphed warmup against its eager one: the same evals on the same
+# inputs (13a holds them bit for bit or within the eager spread), so the
+# same accepts, and dt and models equal but for that spread, which 8
+# adapted iterations amplify little
+MODEL_REL_TOL_13 = 1e-5
+HOST_CALLS_MAX_13 = 9   # host launch calls of a graphed eval: single digits
+
+
+def _timed(torch, fn, *args):
+    """(fn(*args), host ms, the launch counts it moved), synchronised."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+
+    torch.cuda.synchronize()
+    before = FF.launches()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    delta = FF.launch_delta(before, FF.launches())
+    return out, ms, {k: n for k, n in delta.items() if n}
+
+
+def check_graphed_engines(torch, problem, m, m_ref, smi) -> dict:
+    """13a: each of phase 10's six engine and inverse pairs (complex64,
+    refine 6, stale refine 10) on phase 4's models and a second one (numpy
+    seed 2, phase 12's), served from its graphs against its eager closure:
+    per model the fresh eval, the factor at the other model and the stale
+    eval against it, ROUNDS_13 rounds in turn after the graphs' captures;
+    U, misfit, mnorm, pred and the gradient of both evals bit for bit where
+    two eager rounds agree bit for bit, else within their spread; the
+    medians of each call's ms; one profile each of the graphed and the
+    eager fresh and stale eval (device ms; host launch calls of the graphed
+    ones, single digits); capture seconds and pool bytes; gj_inverse
+    launched per_factor times by a factor and a fresh eval, none by a stale
+    eval, none under LU, and no fused kernel.  Returns the gj_inverse
+    launches of a graphed factor replay, by engine."""
+    from hmcmt2d_tpu_torch.models.forward import SolveConfig
+    from hmcmt2d_tpu_torch.sampler.driver import make_factor_fn, make_potential_vg
+    from hmcmt2d_tpu_torch.sampler.graphed import GraphedPotential
+
+    rng = np.random.default_rng(2)
+    m2 = m + 0.01 * torch.as_tensor(rng.standard_normal(tuple(m.shape)),
+                                    dtype=m.dtype, device=m.device)
+    models = (("phase4", m, m2), ("seed2", m2, m))    # (name, model, the factor's)
+    nzi = problem.mesh.nz - 1
+    gj_factor, bad = {}, []
+    for method, inv in ENGINES_C64:
+        label = f"{method}+{inv}"
+        t_engine = time.perf_counter()
+        prob = engine_problem(problem, SolveConfig(torch.complex64, 6, method, inv))
+        vg = make_potential_vg(prob, 1.0)
+        if not isinstance(vg, GraphedPotential):
+            fail(f"13: make_potential_vg did not serve {label} on the card from graphs")
+        kinds = {"graphed": (vg, make_factor_fn(prob, vg)),
+                 "eager": (make_potential_vg(prob, 1.0, graphed=False),
+                           make_factor_fn(prob))}
+        # the three captures (fresh eval, factor, stale eval), before timing
+        vg(m, m_ref)
+        vg(m, m_ref, vg.factor(m2))
+        per = gj_per_factor(method, inv, nzi)
+        want = {"eval": {"gj_inverse": per} if per else {},
+                "factor": {"gj_inverse": per} if per else {}, "stale": {}}
+        ms = {k: {c: [] for c in want} for k in kinds}
+        outs = {k: {name: [] for name, _, _ in models} for k in kinds}
+        for _ in range(ROUNDS_13):
+            for name, mm, mf in models:
+                for kind, (fn, factor) in kinds.items():
+                    fresh, t_e, n_e = _timed(torch, fn, mm, m_ref)
+                    fac, t_f, n_f = _timed(torch, factor, mf)
+                    stale, t_s, n_s = _timed(torch, fn, mm, m_ref, fac)
+                    del fac
+                    for call, t, n in (("eval", t_e, n_e), ("factor", t_f, n_f),
+                                       ("stale", t_s, n_s)):
+                        ms[kind][call].append(t)
+                        if n != want[call]:
+                            bad.append(f"{label} {kind} {call}: launches {n} != {want[call]}")
+                    outs[kind][name].append({"eval": _flat_outputs(fresh),
+                                             "stale": _flat_outputs(stale)})
+        compare = {}
+        for name, _, _ in models:
+            e0, e1 = outs["eager"][name][:2]
+            for call in ("eval", "stale"):
+                for k in OUTPUT_NAMES:
+                    spread = _max_abs(e0[call][k], e1[call][k])
+                    err = max(_max_abs(g[call][k], e0[call][k]) for g in outs["graphed"][name])
+                    compare[f"{name}.{call}.{k}"] = {"graphed_vs_eager": err,
+                                                     "eager_spread": spread}
+                    if err > spread:
+                        bad.append(f"{label} {name}.{call}.{k}: {err:.3e} against an "
+                                   f"eager spread {spread:.3e}")
+        del outs
+        fac_g = vg.factor(m2)
+        prof = {"graphed_eval": profile_eval(torch, vg, m, m_ref),
+                "graphed_stale": profile_eval(torch, lambda a, b: vg(a, b, fac_g), m, m_ref)}
+        del fac_g
+        eager_vg, eager_factor = kinds["eager"]
+        fac_e = eager_factor(m2)
+        prof["eager_eval"] = device_profile(torch, eager_vg, m, m_ref)
+        prof["eager_stale"] = device_profile(torch, lambda a, b: eager_vg(a, b, fac_e), m, m_ref)
+        del fac_e
+        medians = {k: {c: float(np.median(v)) for c, v in d.items()} for k, d in ms.items()}
+        busy = {f"{k}_{c}": prof[f"{k}_{c}"]["device_ms"] / medians[k][c]
+                for k in kinds for c in ("eval", "stale")}
+        host = {c: prof[f"graphed_{c}"]["host_kernel_launch_calls"]
+                + prof[f"graphed_{c}"]["host_graph_launch_calls"] for c in ("eval", "stale")}
+        caps = vg.release()
+        gj_factor[label] = per
+        row = {"phase": "13a", "engine": method, "inv": inv, "dtype": "complex64",
+               "refine": 6, "stale_refine": prob.fwd.cfg.stale_refine_iters, "card": smi,
+               "chains": m.shape[0], "ms": ms, "ms_median": medians,
+               "eager_over_graphed": {c: medians["eager"][c] / medians["graphed"][c]
+                                      for c in want},
+               "device_ms": {k: v["device_ms"] for k, v in prof.items()},
+               "device_kernels": {k: v["device_kernels"] for k, v in prof.items()},
+               "device_busy_share": busy, "graphed_host_launch_calls": host,
+               "graph_launch_calls": {c: prof[f"graphed_{c}"]["host_graph_launch_calls"]
+                                      for c in ("eval", "stale")},
+               "captures": caps, "launches_per_call": want, "compare": compare,
+               "seconds": time.perf_counter() - t_engine}
+        say(row)
+        if [c["kind"] for c in caps] != ["eval", "factor", "stale"]:
+            bad.append(f"{label}: captures {[c['kind'] for c in caps]}")
+        if (any(n > HOST_CALLS_MAX_13 for n in host.values())
+                or not all(row["graph_launch_calls"].values())):
+            bad.append(f"{label}: graphed host launch calls {host}, graph launches "
+                       f"{row['graph_launch_calls']}")
+        del vg, kinds, prob
+    if bad:
+        fail("13a: " + "; ".join(bad))
+    return gj_factor
+
+
+def cut_warmup(torch, prob, m_start, m_ref, graphed: bool) -> dict:
+    """N_WARM_13 warmup iterations (dual-averaged dt, windowed diagonal
+    mass) at the production leapfrog keys (``timestep: 6 10``,
+    ``timeinterval: 0.03``), trajectory-amortised, from seed SEED, through
+    the sampler a run takes (``BatchedSampler``); its graphs, if any, are
+    released at the end.  Returns the iterations' records, dt and
+    seconds."""
+    from hmcmt2d_tpu_torch.sampler import adapt as A
+    from hmcmt2d_tpu_torch.sampler import hmc as H
+    from hmcmt2d_tpu_torch.sampler.driver import BatchedSampler, warmup_segments
+
+    opts = H.HMCOptions(dt=0.03, steps_lo=6, steps_hi=10, log_sig_lo=float(np.log(1e-4)),
+                        log_sig_hi=float(np.log(1.0)), reg_param=1.0)
+    wopts = A.WarmupOptions()
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = BatchedSampler(prob, 1.0, amortize=True, graphed=graphed)
+    carry = eng.carry_init(opts, m_start, m_ref)
+    carry = warmup_segments(eng, opts, m_ref, carry, SEED, 0,
+                            A.window_schedule(N_WARM_13, wopts), wopts, 0,
+                            on_segment=lambda done, n, c, o, secs: outs.append(o))
+    _, info = A.warmup_finalize(carry)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    models, stats, accepts, _, lf = outs[0]
+    return {"models": models, "accepts": accepts, "lf": lf[:, 0].cpu().tolist(),
+            "dt": float(info.dt), "accept_mean": float(accepts.float().mean()),
+            "misfit_end": float(stats[-1, :, 0].mean()), "seconds": seconds,
+            "captures": eng.release()}
+
+
+def check_graphed_warmups(torch, problem, m, m_ref, smi) -> None:
+    """13b: a cut warmup (``cut_warmup``) graphed against eager on bcr+lu,
+    thomas+lu and bcr+gj from phase 4's models: the same accepts, dt and
+    models within MODEL_REL_TOL_13, and the seconds of each."""
+    from hmcmt2d_tpu_torch.models.forward import SolveConfig
+
+    bad = []
+    for method, inv in WARMUP_ENGINES_13:
+        prob = engine_problem(problem, SolveConfig(torch.complex64, 6, method, inv))
+        g = cut_warmup(torch, prob, m, m_ref, graphed=True)
+        e = cut_warmup(torch, prob, m, m_ref, graphed=False)
+        same_acc = bool(torch.equal(g["accepts"], e["accepts"]))
+        dt_rel = abs(g["dt"] - e["dt"]) / e["dt"]
+        model_rel = float((g["models"] - e["models"]).abs().max() / e["models"].abs().max())
+        say({"phase": "13b", "engine": method, "inv": inv, "card": smi,
+             "warmup_iters": N_WARM_13, "timestep": [6, 10], "chains": m.shape[0],
+             "leapfrog_steps": g["lf"], "graphed_s": g["seconds"], "eager_s": e["seconds"],
+             "graphed_capture_s": sum(c["capture_s"] for c in g["captures"]),
+             "eager_over_graphed": e["seconds"] / g["seconds"],
+             "dt": [g["dt"], e["dt"]], "dt_equal": g["dt"] == e["dt"], "dt_rel_err": dt_rel,
+             "accepts_equal": same_acc, "accept_mean": [g["accept_mean"], e["accept_mean"]],
+             "model_max_rel_err": model_rel, "model_rel_tol": MODEL_REL_TOL_13,
+             "misfit_end": [g["misfit_end"], e["misfit_end"]], "captures": g["captures"]})
+        if (not same_acc or g["lf"] != e["lf"] or not dt_rel <= MODEL_REL_TOL_13
+                or not model_rel <= MODEL_REL_TOL_13):
+            bad.append(f"{method}+{inv}: accepts equal {same_acc}, dt {dt_rel:.3e}, "
+                       f"models {model_rel:.3e}")
+        del prob, g, e
+    if bad:
+        fail("13b: graphed against eager: " + "; ".join(bad))
+
+
 # ``--warmup-engines [N]``: the hybrid run's warmup engines at the production
 # warmup length, with the round-5 production keys
 # (runs/dprism3d_r5/startupfile) in place of phase 7's cuts
@@ -1748,15 +1982,33 @@ WARMUP_DONE = (r"warmup (\d+) iters in [\d.]+s: adapted dt=([^,]+), accept~([^,]
                r"misfit (\S+) -> (\S+)")
 
 
-def compare_warmup_engines(torch, problem, m0, smi, n_burn: int) -> None:
+@contextlib.contextmanager
+def eager_evals():
+    """Inside the block ``make_potential_vg`` serves every problem eagerly,
+    as ``graphed=False`` does: the eager run that ``--with-eager`` times
+    beside the graphed one in the same call."""
+    from hmcmt2d_tpu_torch.sampler import graphed as G
+
+    unservable = G.unservable
+    G.unservable = lambda problem: "eager on request (chip_smoke.py --with-eager)"
+    try:
+        yield
+    finally:
+        G.unservable = unservable
+
+
+def compare_warmup_engines(torch, problem, m0, smi, n_burn: int,
+                           with_eager: bool = False) -> None:
     """``hmcmt2d-torch run --warmup-solver thomas``, then ``bcr``, on the
     flagship from files: 8 chains, ``n_burn`` warmup iterations, the GN mass
-    under the warmup engine, then 2 samples on the fused kernels.  Both
-    runs take the same seed and so the same draws: the engines differ only
-    in rounding.  Per engine: the warmup's seconds and seconds an
+    under the warmup engine, then 2 samples on the fused kernels, served
+    from graphs (the default), and with ``with_eager`` each run again
+    eagerly right after (``eager_evals``).  The runs take the same seed
+    and so the same draws: the engines differ only in rounding, graphed and
+    eager not at all.  Per run: the warmup's seconds and seconds an
     iteration, the adapted dt, the warmup's accept rate, the misfit from
-    start to end, the misfit and dt every 25 iterations, and the GN
-    build's seconds."""
+    start to end, the misfit and dt every 25 iterations, the GN build's
+    seconds and the graphs released at the switch."""
     import re
     import tempfile
 
@@ -1768,34 +2020,51 @@ def compare_warmup_engines(torch, problem, m0, smi, n_burn: int) -> None:
         startup = startup.replace(old, new)
     rows = {}
     for engine in ("thomas", "bcr"):
-        with tempfile.TemporaryDirectory() as d:
-            d = Path(d)
-            write_run_files(problem, m0, d, startup)
-            rc, launches, wall, log = cli_run(torch, [
-                "run", str(d / "startup"), "--outdir", str(d), "--progress-every", "25",
-                "--warmup-solver", engine])
-        done = re.search(WARMUP_DONE, log)
-        segs = [tuple(float(x) for x in mm) for mm in re.findall(
-            r"\[hmcmt2d\] warmup \d+/\d+: misfit=(\S+) dt=(\S+) ", log)]
-        secs = phase_seconds(log)
-        if rc != 0 or not done or f"hybrid: warmup engine {engine}" not in log:
-            fail(f"warmup engines: the {engine} run gave rc {rc}, warmup line {bool(done)}")
-        n, dt, acc, mis0, mis1 = done.groups()
-        rows[engine] = {"phase": "warmup_engines", "warmup_solver": engine, "card": smi,
-                        "warmup_iters": int(n), "warmup_s": secs["warmup"],
-                        "s_per_iter": secs["warmup"] / int(n), "adapted_dt": float(dt),
-                        "warmup_accept": float(acc), "misfit_start": float(mis0),
-                        "misfit_end": float(mis1), "gn_build_s": secs["dense_mass_build"],
-                        "phase_s": secs, "wall_s": wall, "launches": launches,
-                        "segments_misfit_dt": segs}
-        say(rows[engine])
-    t, b = rows["thomas"], rows["bcr"]
-    say({"phase": "warmup_engines", "card": smi,
-         "bcr_over_thomas": {"s_per_iter": b["s_per_iter"] / t["s_per_iter"],
-                             "adapted_dt": b["adapted_dt"] / t["adapted_dt"],
-                             "misfit_end": b["misfit_end"] / t["misfit_end"],
-                             "gn_build_s": b["gn_build_s"] / t["gn_build_s"]},
-         "warmup_accept": [t["warmup_accept"], b["warmup_accept"]]})
+        for kind in ("graphed", "eager") if with_eager else ("graphed",):
+            with tempfile.TemporaryDirectory() as d, (
+                    eager_evals() if kind == "eager" else contextlib.nullcontext()):
+                d = Path(d)
+                write_run_files(problem, m0, d, startup)
+                rc, launches, wall, log = cli_run(torch, [
+                    "run", str(d / "startup"), "--outdir", str(d), "--progress-every", "25",
+                    "--warmup-solver", engine])
+            done = re.search(WARMUP_DONE, log)
+            segs = [tuple(float(x) for x in mm) for mm in re.findall(
+                r"\[hmcmt2d\] warmup \d+/\d+: misfit=(\S+) dt=(\S+) ", log)]
+            secs = phase_seconds(log)
+            released = re.findall(r"released the warmup engine's (\w+) graph \(C=\d+\): "
+                                  r"pool (\d+) bytes, captured in ([\d.]+) s", log)
+            if (rc != 0 or not done or f"hybrid: warmup engine {engine}" not in log
+                    or len(released) != (3 if kind == "graphed" else 0)):
+                fail(f"warmup engines: the {kind} {engine} run gave rc {rc}, warmup line "
+                     f"{bool(done)}, released graphs {released}")
+            n, dt, acc, mis0, mis1 = done.groups()
+            rows[engine, kind] = {
+                "phase": "warmup_engines", "warmup_solver": engine, "eval": kind,
+                "card": smi, "warmup_iters": int(n), "warmup_s": secs["warmup"],
+                "s_per_iter": secs["warmup"] / int(n), "adapted_dt": float(dt),
+                "warmup_accept": float(acc), "misfit_start": float(mis0),
+                "misfit_end": float(mis1), "gn_build_s": secs["dense_mass_build"],
+                "phase_s": secs, "wall_s": wall, "launches": launches,
+                "graphs_released": released, "segments_misfit_dt": segs}
+            say(rows[engine, kind])
+    t, b = rows["thomas", "graphed"], rows["bcr", "graphed"]
+    summary = {"phase": "warmup_engines", "card": smi,
+               "bcr_over_thomas_graphed": {
+                   "s_per_iter": b["s_per_iter"] / t["s_per_iter"],
+                   "adapted_dt": b["adapted_dt"] / t["adapted_dt"],
+                   "misfit_end": b["misfit_end"] / t["misfit_end"],
+                   "gn_build_s": b["gn_build_s"] / t["gn_build_s"]},
+               "warmup_accept_graphed": [t["warmup_accept"], b["warmup_accept"]]}
+    if with_eager:
+        summary["eager_over_graphed_warmup_s"] = {
+            e: rows[e, "eager"]["warmup_s"] / rows[e, "graphed"]["warmup_s"]
+            for e in ("thomas", "bcr")}
+        summary["graphed_equals_eager"] = {
+            e: all(rows[e, "eager"][k] == rows[e, "graphed"][k]
+                   for k in ("adapted_dt", "warmup_accept", "misfit_end"))
+            for e in ("thomas", "bcr")}
+    say(summary)
 
 
 # phase 11: the port's bench (hmcmt2d_tpu_torch.bench) at cut lengths.
@@ -1913,11 +2182,14 @@ def check_bench(torch, smi, dev) -> dict:
 
 
 def main() -> None:
-    n_warmup = 0
-    if sys.argv[1:]:
-        if sys.argv[1] != "--warmup-engines" or len(sys.argv) > 3:
-            fail("usage: python3 chip_smoke.py [--warmup-engines [N]]")
-        n_warmup = int(sys.argv[2]) if len(sys.argv) == 3 else 300
+    n_warmup, args = 0, sys.argv[1:]
+    with_eager = "--with-eager" in args
+    if with_eager:
+        args.remove("--with-eager")
+    if args or with_eager:
+        if not args or args[0] != "--warmup-engines" or len(args) > 2:
+            fail("usage: python3 chip_smoke.py [--warmup-engines [N] [--with-eager]]")
+        n_warmup = int(args[1]) if len(args) == 2 else 300
 
     try:
         import torch
@@ -1963,7 +2235,7 @@ def main() -> None:
         f"{problem.fwd.data.n_data} data, {problem.n_param} parameters, C={C}; "
         f"{time.perf_counter() - t0:.1f} s")
     if n_warmup:
-        compare_warmup_engines(torch, problem, m0, smi, n_warmup)
+        compare_warmup_engines(torch, problem, m0, smi, n_warmup, with_eager)
         say(smi_line())
         say({"ok": True, "device": {"platform": "gpu", "kind": name,
                                     "count": torch.cuda.device_count()}})
@@ -2005,7 +2277,8 @@ def main() -> None:
         problem.mesh, problem.fwd.data, SolveConfig(torch.complex128, 0, "thomas")))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    (U_ref, _), g_ref = make_potential_vg(ref, 1.0)(m.double(), m_ref.double())
+    (U_ref, _), g_ref = make_potential_vg(ref, 1.0, graphed=False)(m.double(),
+                                                                   m_ref.double())
     torch.cuda.synchronize()
     ref_ms = (time.perf_counter() - t0) * 1e3
     u_rel = float(((U - U_ref).abs() / U_ref.abs()).max())
@@ -2091,6 +2364,12 @@ def main() -> None:
     check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s)
     gj_run_launches = check_gj_cli(torch, problem, m0, smi, phase7_s)
 
+    # phase 13: the warmup engines served from their graphs, against eager
+    t13 = time.perf_counter()
+    gj_graphed_launches = check_graphed_engines(torch, problem, m, m_ref, smi)
+    check_graphed_warmups(torch, problem, m, m_ref, smi)
+    say(f"[phase 13] {time.perf_counter() - t13:.1f} s")
+
     # phase 11: the bench's pipeline at cut lengths
     bench_launches = check_bench(torch, smi, dev)
 
@@ -2130,6 +2409,7 @@ def main() -> None:
                 launches_main_path=counts.get(k, 0),
                 launches_bench=bench_launches.get(k, 0),
                 launches_per_factor_and_eval=gj_engine_launches,
+                launches_per_graphed_factor_replay=gj_graphed_launches,
                 variants={v: {kk: r2[kk] for kk in ("batch", "n", "dtype", "abs", "rel",
                                                     "kernel_ms", "plain_ms", "bound_ms",
                                                     "share_of_bound", "library_ms")}

@@ -102,8 +102,8 @@ def _sync(device: torch.device) -> None:
 def _build(problem_factory, n_chains, seg=8, n_warm=0, gn_mass=False, n_readapt=56):
     """The problem (realistic observations), a runner ``run(n_samples,
     seed) -> HMCResult`` of the adapted kernel, and its options;
-    ``run.graphed`` says whether a CUDA graph serves its evals (the fused
-    engine on the card, :mod:`.sampler.graphed`).
+    ``run.graphed`` says whether CUDA graphs serve its evals (every engine
+    on the card, :mod:`.sampler.graphed`).
 
     With ``n_warm`` > 0, the production adaptation runs first: a
     dual-averaging dt + diagonal mass warmup (``sampler/adapt.py``); with
@@ -121,7 +121,7 @@ def _build(problem_factory, n_chains, seg=8, n_warm=0, gn_mass=False, n_readapt=
     dev = problem.device
     vg = make_potential_vg(problem, 1.0)
     graphed = isinstance(vg, GraphedPotential)
-    factor_fn = make_factor_fn(problem) if amortize else None
+    factor_fn = make_factor_fn(problem, vg) if amortize else None
     opts = H.HMCOptions(dt=0.03, steps_lo=6, steps_hi=10,
                         log_sig_lo=float(np.log(1e-4)),
                         log_sig_hi=float(np.log(1.0)), reg_param=1.0)

@@ -249,7 +249,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="factorisation engine (fused = the CUDA kernels)")
     ap.add_argument("--inv", default="auto", choices=["auto", "lu", "gj"],
                     help="batched inverse of thomas, thomas_blocked and bcr: "
-                         "lu (torch.linalg.inv; auto) or gj (unpivoted "
+                         "lu (partial-pivoting LU; auto) or gj (unpivoted "
                          "Gauss-Jordan, the gj_inverse kernel on the GPU)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 

@@ -44,8 +44,9 @@ class SolveConfig:
     of iterative refinement.  Unlike the JAX package, whose field default
     is ``"bcr"``, the default engine here is ``"thomas"``.
     ``inv_method`` is the batched inverse inside thomas, thomas_blocked and
-    bcr: ``"lu"`` (``torch.linalg.inv``) or ``"gj"`` (unpivoted
-    Gauss-Jordan, the ``gj_inverse`` kernel on the GPU; ops/fused_factor.py).
+    bcr: ``"lu"`` (partial-pivoting LU, ``ops/solver.py`` ``lu_inverse``)
+    or ``"gj"`` (unpivoted Gauss-Jordan, the ``gj_inverse`` kernel on the
+    GPU; ops/fused_factor.py).
     ``stale_refine_iters`` refinement steps serve a solve with a stale
     (trajectory-amortised) factor, see :func:`solve_dirichlet`.
     """

@@ -21,9 +21,11 @@ Four engines (``factorize(method=...)``):
   operator (the production setting on the GPU).
 
 thomas, thomas_blocked and bcr invert their blocks with LU
-(``torch.linalg.inv``, ``inv_method="lu"``) or by unpivoted Gauss-Jordan
+(:func:`lu_inverse`, ``inv_method="lu"``) or by unpivoted Gauss-Jordan
 (``inv_method="gj"``: :func:`.fused_factor.gj_inverse`, the CUDA kernel on
-the GPU and its plain version on the CPU).
+the GPU and its plain version on the CPU).  Neither reads the device from
+the host, so every engine's factor and solve can be captured in a CUDA
+graph (``sampler/graphed.py``).
 """
 
 from __future__ import annotations
@@ -98,7 +100,36 @@ def _dense_blocks(diag: torch.Tensor, offy: torch.Tensor) -> torch.Tensor:
             - offy_p[..., None, :] * lo)
 
 
-def bt_factor(sys: InteriorSystem, inv_fn=torch.linalg.inv) -> BTFactor:
+# PyTorch's CUDA backend for :func:`lu_inverse`, chosen once for every
+# batch: the default backend gives the engines' batches (176 to 5,632
+# blocks of 95) to MAGMA's batched getrf, which a CUDA graph's capture
+# refuses; "cusolver" gives a batch to cuBLAS's getrfBatched and
+# getrsBatched (a single matrix to cuSOLVER's getrf), which capture, with
+# results equal to torch.linalg.inv's under the same backend
+# (scripts/torch_lu_capture.py, PERF.md)
+LU_LIBRARY = "cusolver"
+
+
+def lu_inverse(A: torch.Tensor) -> torch.Tensor:
+    """Batched inverse of A (..., n, n) by partial-pivoting LU:
+    ``torch.linalg.inv_ex`` with its error check left out, so it never
+    reads ``info`` back to the host and a CUDA graph can capture it.  The
+    same factorisation as ``torch.linalg.inv`` (which is ``inv_ex`` plus
+    that check), so the same numbers.  A singular block gives non-finite
+    values instead of raising, as JAX's ``jnp.linalg.inv`` does; the HMC
+    step never accepts a non-finite proposal.  On a CUDA tensor it runs
+    under the :data:`LU_LIBRARY` backend."""
+    if A.device.type != "cuda":
+        return torch.linalg.inv_ex(A).inverse
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library(LU_LIBRARY)
+    try:
+        return torch.linalg.inv_ex(A).inverse
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def bt_factor(sys: InteriorSystem, inv_fn=lu_inverse) -> BTFactor:
     """G_0 = inv(T_0), G_j = inv(T_j - C_{j-1} G_{j-1} C_{j-1}); ``inv_fn``
     is the batched inverse (LU, or :func:`.fused_factor.gj_inverse`)."""
     diag, offy, offz = sys
@@ -199,7 +230,7 @@ def _group_prefix(H: torch.Tensor, g: int, reverse: bool = False) -> torch.Tenso
     return torch.stack(Q, dim=-3).reshape(shape)
 
 
-def bt_factor_blocked(sys: InteriorSystem, inv_fn=torch.linalg.inv,
+def bt_factor_blocked(sys: InteriorSystem, inv_fn=lu_inverse,
                       g: int = BT_GROUP) -> BTFactorBlocked:
     """The thomas factor, padded to a multiple of g lines (zero blocks and
     couplings), and its groups' prefix products."""
@@ -320,7 +351,7 @@ def _T(x: torch.Tensor) -> torch.Tensor:
 
 def bcr_factor(sys: InteriorSystem, inv_fn=None) -> BCRFactor:
     """Cyclic reduction of the interior block-tridiagonal system;
-    ``inv_fn`` is the batched inverse (default ``torch.linalg.inv``).
+    ``inv_fn`` is the batched inverse (default :func:`lu_inverse`).
 
     Pads the nzi z-lines to N = 2^m - 1 with identity blocks and zero
     couplings (decoupled), then eliminates the 0-based even blocks level
@@ -333,7 +364,7 @@ def bcr_factor(sys: InteriorSystem, inv_fn=None) -> BCRFactor:
     batch = torch.broadcast_shapes(T.shape[:-3], offz.shape[:-2])
     T = T.expand(batch + T.shape[-3:])
     nzi, q = T.shape[-3], T.shape[-1]
-    inv_fn = torch.linalg.inv if inv_fn is None else inv_fn
+    inv_fn = lu_inverse if inv_fn is None else inv_fn
     N = 2 ** nzi.bit_length() - 1          # the smallest 2^m - 1 >= nzi
     if N == 1:
         return BCRFactor((BCRLevel(inv_fn(T), None, None),))
@@ -438,7 +469,7 @@ class Factorization(NamedTuple):
 
 FACTOR_FN = {"thomas": bt_factor, "thomas_blocked": bt_factor_blocked,
              "bcr": bcr_factor}
-INV_FN = {"lu": torch.linalg.inv, "gj": gj_inverse}
+INV_FN = {"lu": lu_inverse, "gj": gj_inverse}
 
 
 def uses_kernels(method: str, inv_method: str) -> bool:

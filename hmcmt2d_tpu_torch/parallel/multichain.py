@@ -239,6 +239,10 @@ class ShardedSampler:
         data, as the single-process sampler carries them."""
         return cube_flat[..., self.flat_index]
 
+    def release(self) -> list[dict]:
+        """The sharded path runs eagerly: it holds no graph to free."""
+        return []
+
     def local_state(self, state: H.ChainState, rows) -> H.ChainState:
         return H.ChainState(m=self._local(state.m, rows), grad=self._local(state.grad, rows),
                             misfit=self._local(state.misfit, rows),

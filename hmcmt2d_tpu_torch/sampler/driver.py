@@ -67,10 +67,11 @@ def make_potential_vg(problem: InverseProblem, reg: float,
     ``vg(m, m_ref, fac=None) -> ((U, (misfit, mnorm, pred)), grad)``, all
     detached; ``fac`` is a stale factor from :func:`make_factor_fn`.
 
-    ``graphed``: None serves the fused engine on a CUDA device from a CUDA
-    graph (:class:`.graphed.GraphedPotential`, which takes no ``fac``) and
-    every other problem eagerly; True asks for the graph and raises where
-    it cannot serve; False returns the eager closure (the counterpart of
+    ``graphed``: None serves every CUDA problem, whatever its engine and
+    inverse, from CUDA graphs (:class:`.graphed.GraphedPotential`: the
+    fresh eval, and the stale eval of a factor from its own factor graph)
+    and a CPU problem eagerly; True asks for the graphs and raises where
+    they cannot serve; False returns the eager closure (the counterpart of
     ``jax.disable_jit``).
     """
     if graphed is None:
@@ -84,21 +85,32 @@ def make_potential_vg(problem: InverseProblem, reg: float,
     return vg
 
 
-def make_factor_fn(problem: InverseProblem):
-    """Batched model -> merged-mode factorisation (trajectory amortisation)."""
+def make_factor_fn(problem: InverseProblem, potential_vg=None):
+    """Batched model -> merged-mode factorisation (trajectory amortisation)
+    for ``potential_vg``'s stale evals: its factor graph when it is graphed
+    (whose stale eval takes only that factor), else the eager
+    ``problem.factor_state``."""
+    if isinstance(potential_vg, G.GraphedPotential):
+        return potential_vg.factor
     return problem.factor_state
 
 
 class BatchedSampler:
     """The single-process sampler behind the calls of
     :class:`~hmcmt2d_tpu_torch.parallel.multichain.ShardedSampler`, so that
-    :func:`run_inversion` drives either one."""
+    :func:`run_inversion` drives either one.  ``graphed`` as in
+    :func:`make_potential_vg`."""
 
-    def __init__(self, problem: InverseProblem, reg: float, amortize: bool = True):
-        # a stale factor goes to the eager eval: the graphed one takes none
-        self.potential_vg = make_potential_vg(problem, reg,
-                                              graphed=False if amortize else None)
-        self.factor_fn = make_factor_fn(problem) if amortize else None
+    def __init__(self, problem: InverseProblem, reg: float, amortize: bool = True,
+                 graphed: bool | None = None):
+        self.potential_vg = make_potential_vg(problem, reg, graphed)
+        self.factor_fn = make_factor_fn(problem, self.potential_vg) if amortize else None
+
+    def release(self) -> list[dict]:
+        """Free the graphs and pools of a graphed potential; returns each
+        capture's summary (none for the eager one)."""
+        vg = self.potential_vg
+        return vg.release() if isinstance(vg, G.GraphedPotential) else []
 
     def carry_init(self, opts, m0, m_ref) -> A.WarmupCarry:
         return A.warmup_carry_init(self.potential_vg, opts, m0, m_ref)
@@ -375,6 +387,12 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
                 state = None
                 log(f"hybrid: warmup engine {warmup_solve_cfg.solver_method} "
                     f"-> main engine {problem.fwd.cfg.solver_method}")
+                # the warmup engine's graphs go before the main engine's
+                # capture theirs
+                for cap in eng_w.release():
+                    log(f"released the warmup engine's {cap['kind']} graph "
+                        f"(C={cap['chains']}): pool {cap['pool_bytes']} bytes, "
+                        f"captured in {cap['capture_s']:.3f} s")
             if mkind != "diagonal":
                 t_m = time.time()
                 m_repr = (m_start if state is None else state.m).mean(dim=0)

@@ -1,31 +1,56 @@
-"""The batched potential value-and-grad, captured once as a CUDA graph.
+"""The batched potential value-and-grad, and its trajectory-amortised
+factor, captured once as CUDA graphs.
 
-The port's counterpart of the JAX package's jitted sampler
+The port's counterpart of the JAX package's jitted sampler and warmup
 (``hmcmt2d_tpu/sampler/hmc.py``, ``sampler/driver.py``): XLA traces an
 evaluation once and dispatches it as one program, where the eager port
 issues every op of every evaluation from Python (about 11,900 kernels a
-flagship eval at C = 8, the host setting its pace).  Here the fused
-engine's eval, ``problem.potential_value_and_grad`` with its
-``torch.autograd.grad`` (the forward factor, the forward sweeps and the
-adjoint solve of ``_DirichletSolve.backward``, ``models/forward.py``), is
-captured into one ``torch.cuda.CUDAGraph`` for each shape and dtype of
-(m, m_ref) and replayed in every later call.
+fused flagship eval at C = 8, 14,000-24,000 on the other engines, the host
+setting its pace).  Here every engine's eval, fused, thomas,
+thomas_blocked or bcr with either inverse
+(``problem.potential_value_and_grad`` with its ``torch.autograd.grad``:
+the forward factor, the forward solve and the adjoint solve of
+``_DirichletSolve.backward``, ``models/forward.py``), is captured into one
+``torch.cuda.CUDAGraph`` for each shape and dtype of (m, m_ref) and
+replayed in every later call.
+
+Trajectory amortisation (``sampler/hmc.py`` ``_leapfrog``: a factor at the
+trajectory's start and every ``refactor_every`` steps, the steps between
+solving against it) takes two more graphs a shape, as JAX compiles the
+factor and the stale evals into its scan:
+
+* the factor graph, :meth:`GraphedPotential.factor`: m ->
+  ``problem.factor_state(m)``.  Its replay rewrites the factor in the
+  graph's static outputs and returns that same ``Factorization``;
+* the stale eval graph, ``vg(m, m_ref, fac)`` with ``fac`` that static
+  output: it reads the factor graph's outputs where they lie.
+
+Rewriting the factor in place is sound because the sampler holds one
+factor at a time: ``_leapfrog`` drops the old factor when it refactors,
+and a factor never outlives its trajectory.  A caller that kept two
+factors would find both rewritten by the later one, so ``vg`` refuses any
+factor that is not its own factor graph's output: a foreign factor is
+never read silently from stale buffers.
 
 Capture follows PyTorch's recipe for whole-network capture:
 :data:`WARMUP_CALLS` eager calls on a side stream, then the capture on
-that stream into the graph's own memory pool (one pool a shape: the bench
-interleaves C = 8, 12 and 16).  A call copies m and m_ref into the graph's
-static inputs, replays it, and returns clones of its outputs, since the
+that stream into the graph's own memory pool (one pool a graph: the bench
+interleaves C = 8, 12 and 16, and a factor must survive the stale evals'
+replays that read it).  A call copies its inputs into the graph's static
+inputs and replays it; an eval returns clones of its outputs, since the
 next replay overwrites them and the sampler carries the gradient and pred
-across steps.  A capture or replay error raises; nothing falls back to
-the eager eval.
+across steps.  A capture or replay error raises; nothing falls back to the
+eager eval.  :meth:`GraphedPotential.release` frees every graph and pool
+(the hybrid run's warmup engine, at the switch to the main one).
 
 Launch counts: the kernel wrappers count while they are captured, not when
 the graph runs them.  A capture records what :func:`.fused_factor.launches`
 moved across it, and each replay adds that (:func:`.fused_factor.
-add_launches`), so the counts read (1, 14, 14) an eval served, as eagerly.
-The capture's own warm-up evals and its recording are taken back out of
-the counts (they serve no caller) and kept in its :class:`Capture`.
+add_launches`), so the counts read as eagerly: (1, 14, 14) a fused eval,
+and ``gj_inverse`` once a line (thomas, thomas_blocked) or a level (bcr)
+of each factor under ``inv_method="gj"``.  The capture's own warm-up calls
+and its recording are taken back out of the counts (they serve no caller)
+and kept in its :class:`Capture`.
 """
 
 from __future__ import annotations
@@ -41,36 +66,42 @@ WARMUP_CALLS = 3   # eager calls on the side stream before a capture
 
 
 def unservable(problem) -> str | None:
-    """Why the graphed eval cannot serve ``problem``, or None: it serves the
-    fused engine on a CUDA device only."""
+    """Why the graphs cannot serve ``problem``, or None: they serve every
+    engine and inverse on a CUDA device."""
     if problem.device.type != "cuda":
         return f"the graphed eval needs a CUDA problem, not one on {problem.device}"
-    method = problem.fwd.cfg.solver_method
-    if method != "fused":
-        return f"the graphed eval serves the fused engine, not {method!r}"
     return None
 
 
 class Capture(NamedTuple):
-    """One captured eval: the graph, its static inputs and outputs, and what
-    its capture cost."""
+    """One captured call: the graph, its static inputs and outputs, and
+    what its capture cost."""
 
+    kind: str                       # "eval" (fresh factor), "factor" or "stale"
     graph: torch.cuda.CUDAGraph
-    m: torch.Tensor                 # static input, copied into at each call
-    m_ref: torch.Tensor
-    out: tuple                      # ((U, (misfit, mnorm, pred)), grad), static
+    inputs: tuple                   # static (m,) or (m, m_ref), copied into
+    out: object                     # static outputs, rewritten by each replay
     launches: dict[str, int]        # counted once a replay
-    warmup_launches: dict[str, int]  # the WARMUP_CALLS eager evals' launches
+    warmup_launches: dict[str, int]  # the WARMUP_CALLS eager calls' launches
     seconds: float                  # warm-ups and capture, host clock
     pool_bytes: int                 # device memory the graph's pool reserved
 
+    def summary(self) -> dict:
+        return {"kind": self.kind, "chains": self.inputs[0].shape[0],
+                "capture_s": self.seconds, "pool_bytes": self.pool_bytes,
+                "launches_per_replay": self.launches}
+
+
+def _signature(*ts: torch.Tensor) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in ts)
+
 
 class GraphedPotential:
-    """``vg(m, m_ref) -> ((U, (misfit, mnorm, pred)), grad)``, the call of
-    the eager ``make_potential_vg`` closure, served by a CUDA graph of the
-    fused engine's eval, one for each shape and dtype of (m, m_ref)
-    (``captures``).  A stale factor (``fac``) raises: the fused engine runs
-    without trajectory amortisation."""
+    """``vg(m, m_ref, fac=None) -> ((U, (misfit, mnorm, pred)), grad)``, the
+    call of the eager ``make_potential_vg`` closure, and :meth:`factor`,
+    the eager ``make_factor_fn``'s, served by CUDA graphs of ``problem``'s
+    engine, one for each kind and each shape and dtype of the inputs
+    (``captures``)."""
 
     def __init__(self, problem, reg: float):
         why = unservable(problem)
@@ -79,21 +110,21 @@ class GraphedPotential:
         self.problem, self.reg = problem, reg
         self.captures: dict[tuple, Capture] = {}
 
-    def _eval(self, m, m_ref):
-        return self.problem.potential_value_and_grad(m, m_ref, self.reg)
+    def _eval(self, m, m_ref, fac=None):
+        return self.problem.potential_value_and_grad(m, m_ref, self.reg, fac=fac)
 
-    def _capture(self, m: torch.Tensor, m_ref: torch.Tensor) -> Capture:
+    def _capture(self, kind: str, fn, inputs: tuple) -> Capture:
         dev = self.problem.device
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        m_s = torch.empty(m.shape, dtype=m.dtype, device=dev).copy_(m)
-        r_s = torch.empty(m_ref.shape, dtype=m_ref.dtype, device=dev).copy_(m_ref)
+        static = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
+                       for x in inputs)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         before = FF.launches()
         with torch.cuda.stream(side):
             for _ in range(WARMUP_CALLS):
-                self._eval(m_s, r_s)
+                fn(*static)
         torch.cuda.current_stream(dev).wait_stream(side)
         warmed = FF.launches()
         graph = torch.cuda.CUDAGraph()
@@ -101,30 +132,63 @@ class GraphedPotential:
         # the capture reserves is the pool's size
         with torch.cuda.graph(graph, stream=side):
             reserved = torch.cuda.memory_reserved(dev)
-            out = self._eval(m_s, r_s)
+            out = fn(*static)
         pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         after = FF.launches()
         FF.add_launches(FF.launch_delta(after, before))
         torch.cuda.synchronize(dev)
-        return Capture(graph, m_s, r_s, out, FF.launch_delta(warmed, after),
+        return Capture(kind, graph, static, out, FF.launch_delta(warmed, after),
                        FF.launch_delta(before, warmed), time.perf_counter() - t0,
                        pool_bytes)
 
-    def __call__(self, m: torch.Tensor, m_ref: torch.Tensor, fac=None):
-        if fac is not None:
-            raise ValueError("the graphed eval takes no stale factor: the fused "
-                             "engine runs without trajectory amortisation")
+    def _replay(self, key: tuple, kind: str, fn, inputs: tuple):
         dev = self.problem.device
-        if m.device != dev or m_ref.device != dev:
-            raise ValueError(f"m on {m.device} and m_ref on {m_ref.device}; the "
+        if any(x.device != dev for x in inputs):
+            raise ValueError(f"inputs on {[str(x.device) for x in inputs]}; the "
                              f"problem is on {dev}")
-        key = (tuple(m.shape), m.dtype, tuple(m_ref.shape), m_ref.dtype)
         cap = self.captures.get(key)
         if cap is None:
-            cap = self.captures[key] = self._capture(m, m_ref)
-        cap.m.copy_(m)
-        cap.m_ref.copy_(m_ref)
+            cap = self.captures[key] = self._capture(kind, fn, inputs)
+        with torch.no_grad():
+            for s, x in zip(cap.inputs, inputs):
+                s.copy_(x)
         cap.graph.replay()
         FF.add_launches(cap.launches)
-        (U, aux), g = cap.out
+        return cap.out
+
+    def factor(self, m: torch.Tensor):
+        """``problem.factor_state(m)`` from the factor graph: the graph's
+        static ``Factorization``, rewritten in place by every call (see the
+        module docstring); the stale eval takes only this."""
+        return self._replay(("factor",) + _signature(m), "factor",
+                            self.problem.factor_state, (m,))
+
+    def _factor_key(self, fac) -> tuple:
+        for key, cap in self.captures.items():
+            if cap.kind == "factor" and cap.out is fac:
+                return key
+        raise ValueError("a stale factor that this graphed eval's factor graph "
+                         "did not make: it could be read only from stale "
+                         "buffers; take factors from its factor()")
+
+    def __call__(self, m: torch.Tensor, m_ref: torch.Tensor, fac=None):
+        if fac is None:
+            key, kind, fn = ("eval",) + _signature(m, m_ref), "eval", self._eval
+        else:
+            key = ("stale", self._factor_key(fac)) + _signature(m, m_ref)
+            kind = "stale"
+
+            def fn(m_s, r_s):
+                return self._eval(m_s, r_s, fac)
+
+        (U, aux), g = self._replay(key, kind, fn, (m, m_ref))
         return (U.clone(), tuple(a.clone() for a in aux)), g.clone()
+
+    def release(self) -> list[dict]:
+        """Drop every capture, its graph and its pool, and return the
+        device's freed memory; returns each capture's summary.  A later
+        call captures afresh."""
+        done = [cap.summary() for cap in self.captures.values()]
+        self.captures.clear()
+        torch.cuda.empty_cache()
+        return done

@@ -482,7 +482,8 @@ def test_graphed_second_shape_captures_its_own_graph(cuda_device):
     for mm in (m2, m3, m2):
         for a, b in zip(_flat(vg(mm, mm)), _flat(eager(mm, mm))):
             assert torch.equal(a, b)
-    assert sorted(k[0] for k in vg.captures) == [(2, m2.shape[1]), (3, m3.shape[1])]
+    assert sorted(tuple(c.inputs[0].shape) for c in vg.captures.values()) == [
+        (2, m2.shape[1]), (3, m3.shape[1])]
     pools = [c.graph.pool() for c in vg.captures.values()]
     assert pools[0] != pools[1]
 
@@ -493,3 +494,58 @@ def test_graphed_eval_refuses_a_stale_factor(cuda_device):
     with pytest.raises(ValueError, match="stale factor"):
         vg(ma, ma, fac)
     assert vg.captures == {}
+
+
+def _equal_or_within_spread(got, eager_a, eager_b) -> None:
+    """Each of ``got`` equals ``eager_a``'s bit for bit where two eager runs
+    (a, b) agree bit for bit, else lies within their spread."""
+    for g, a, b in zip(got, eager_a, eager_b):
+        spread = float((a - b).abs().max())
+        assert float((g - a).abs().max()) <= spread
+
+
+@pytest.mark.parametrize("method,inv", [("thomas", "lu"), ("bcr", "gj")])
+def test_graphed_engine_eval_and_trajectory_equal_eager(cuda_device, method, inv):
+    """A warmup engine on the card (complex64, refine 6, the tiny flagship)
+    served from its graphs: the fresh eval on two models in turn, then a
+    trajectory-amortised leapfrog of 5 steps refactoring every 2 (the
+    factor graph and the stale eval graph), each equal to the eager one;
+    a factor replay launches gj_inverse once a line (thomas) or a level
+    (bcr) under gj, none under LU, and the stale eval none."""
+    from hmcmt2d_tpu_torch.sampler import hmc as H
+    from hmcmt2d_tpu_torch.sampler.driver import make_factor_fn
+    from hmcmt2d_tpu_torch.sampler.graphed import GraphedPotential
+
+    cfg = SolveConfig(torch.complex64, 6, method, inv)
+    gpu, m0 = entry.flagship_problem(tiny=True, device=cuda_device, cfg=cfg)
+    vg, eager = make_potential_vg(gpu, 1.0), make_potential_vg(gpu, 1.0, graphed=False)
+    assert isinstance(vg, GraphedPotential)
+    rng = np.random.default_rng(8)
+    ma, mb = (torch.as_tensor(m0 + 0.1 * rng.standard_normal((2, len(m0))),
+                              dtype=torch.float32, device=cuda_device) for _ in range(2))
+    for mm in (ma, mb, ma):
+        _equal_or_within_spread(_flat(vg(mm, ma)), _flat(eager(mm, ma)), _flat(eager(mm, ma)))
+
+    nzi = gpu.mesh.nz - 1
+    per_factor = 0 if inv == "lu" else (nzi.bit_length() if method == "bcr" else nzi)
+    factor = make_factor_fn(gpu, vg)
+    FF.reset_launches()
+    fac = factor(mb)
+    assert FF.launches().get("gj_inverse", 0) == per_factor
+    FF.reset_launches()
+    vg(ma, ma, fac)
+    assert FF.launches().get("gj_inverse", 0) == 0
+
+    opts = H.HMCOptions(dt=0.02, steps_lo=5, steps_hi=5, log_sig_lo=float(np.log(1e-4)),
+                        log_sig_hi=float(np.log(10.0)), reg_param=1.0, refactor_every=2)
+    mass = H.identity_mass(len(m0), torch.float32, cuda_device)
+    p0 = torch.as_tensor(np.clip(rng.standard_normal((2, len(m0))), -2.5, 2.5),
+                         dtype=torch.float32, device=cuda_device)
+    runs = []
+    for fn, fac_fn in ((vg, factor), (eager, make_factor_fn(gpu)), (eager, make_factor_fn(gpu))):
+        state = H.sample_chain_init(fn, ma, ma)
+        prop, p1 = H._leapfrog(fn, opts, mass, state, p0, ma, 5, opts.dt, factor_fn=fac_fn)
+        runs.append(tuple(prop) + (p1,))
+    _equal_or_within_spread(*runs)
+    kinds = sorted(c.kind for c in vg.captures.values())
+    assert kinds == ["eval", "factor", "stale"], kinds

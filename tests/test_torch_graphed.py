@@ -1,8 +1,12 @@
-"""The graphed eval's CPU side: the fused eval makes no host round trip
-after its first call (what a CUDA graph's capture needs), ``make_potential_vg``
-picks the graph only for the fused engine on a CUDA problem, and the launch
-counts a replay adds.  The graph itself runs on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 12).
+"""The graphed eval's CPU side: the fused eval, and every warmup engine's
+(thomas, thomas_blocked and bcr, each with LU and with Gauss-Jordan) fresh
+eval, factor and stale-factor eval, make no host round trip after their
+first call (what a CUDA graph's capture needs); the LU inverse they take
+equals ``torch.linalg.inv``; ``make_potential_vg`` picks the graphs for
+every engine on a CUDA problem and the eager closure on a CPU one; the
+graphed potential refuses a factor its factor graph did not make; and the
+launch counts a replay adds.  The graphs themselves run on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phases 12 and 13).
 
 The port runs the tiny flagship under the fused config (complex64 factors,
 refine 6) on the CPU, through the kernels' plain versions; JAX runs the
@@ -30,8 +34,10 @@ from hmcmt2d_tpu.sampler.driver import make_potential_vg as jax_vg  # noqa: E402
 from hmcmt2d_tpu_torch import convert, entry  # noqa: E402
 from hmcmt2d_tpu_torch.models.forward import SolveConfig  # noqa: E402
 from hmcmt2d_tpu_torch.ops import fused_factor as FF  # noqa: E402
+from hmcmt2d_tpu_torch.ops import solver as S  # noqa: E402
 from hmcmt2d_tpu_torch.sampler import graphed as G  # noqa: E402
-from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg  # noqa: E402
+from hmcmt2d_tpu_torch.sampler.driver import (BatchedSampler, make_factor_fn,  # noqa: E402
+                                              make_potential_vg)
 from tests.torch_parity import chain_models, jax_problem_with, problem_arrays  # noqa: E402
 
 U_TOL = 1e-4      # tests/test_torch_fused.py's limits for the fused config
@@ -43,11 +49,15 @@ SURVEYS = {"two_modes": dict(),
            "tm_rho_phase": dict(data_comp=("RhoYX", "PhsYX"), data_type="Rho_Phs")}
 # every Tensor method that copies a value to the host and waits on the device
 HOST_READS = ("item", "__bool__", "__int__", "__float__", "tolist", "numpy")
+# the warmup engines, each with both inverses
+ENGINES = [(method, inv) for method in ("thomas", "thomas_blocked", "bcr")
+           for inv in ("lu", "gj")]
 
 
 @contextlib.contextmanager
 def no_host_round_trip():
-    """Make every host read of a tensor raise, and record each
+    """Make every host read of a tensor raise, and ``torch.linalg.inv``
+    (which reads its error code back from the device), and record each
     ``torch.as_tensor`` / ``torch.tensor`` of data that is not a tensor (a
     host-to-device copy on the card).  Yields the list of those calls."""
     made = []
@@ -56,6 +66,9 @@ def no_host_round_trip():
         def read(self, *a, **k):
             raise AssertionError(f"host round trip: Tensor.{name}")
         return read
+
+    def inv(*a, **k):
+        raise AssertionError("host round trip: torch.linalg.inv reads its error code")
 
     def recorded(fn):
         def make(data, *a, **k):
@@ -70,6 +83,7 @@ def no_host_round_trip():
             mp.setattr(torch.Tensor, name, refuse(name))
         mp.setattr(torch, "as_tensor", recorded(torch.as_tensor))
         mp.setattr(torch, "tensor", recorded(torch.tensor))
+        mp.setattr(torch.linalg, "inv", inv)
         yield made
     finally:
         mp.undo()
@@ -102,9 +116,52 @@ def test_host_reads_are_refused_inside_the_patch():
                      lambda: int(t[0]), lambda: float(t[0]), t.tolist, t.numpy):
             with pytest.raises(AssertionError, match="host round trip"):
                 read()
+        with pytest.raises(AssertionError, match="host round trip"):
+            torch.linalg.inv(torch.eye(2))
         torch.as_tensor(np.zeros(2))
         torch.as_tensor(t)
     assert made == [("as_tensor", "ndarray")]
+
+
+def _tensors(x) -> list:
+    """The tensors of a (nested) factorisation, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for part in x for t in _tensors(part)]
+    return []
+
+
+@pytest.mark.parametrize("method,inv", ENGINES)
+def test_engine_evals_and_factor_make_no_host_round_trip_after_their_first(method, inv):
+    """Each warmup engine under each inverse (gj through its plain version
+    here), complex64 refined 6 times on the tiny flagship: after a first
+    call of each, the fresh eval, ``factor_state`` and the stale-factor
+    eval read nothing back to the host and copy nothing from it, and give
+    what they gave the first time."""
+    cfg = SolveConfig(torch.complex64, 6, method, inv)
+    prob, m0 = entry.flagship_problem(tiny=True, device="cpu", cfg=cfg)
+    m = torch.as_tensor(chain_models(m0, 2).astype(np.float32))
+    vg = make_potential_vg(prob, 1.0)
+    factor = make_factor_fn(prob, vg)
+    assert factor == prob.factor_state
+    first = (vg(m, m), factor(m + 0.01))
+    first += (vg(m, m, first[1]),)
+    with no_host_round_trip() as made:
+        again = (vg(m, m), factor(m + 0.01))
+        again += (vg(m, m, again[1]),)
+    assert made == []
+    for x, y in ((first[0], again[0]), (first[2], again[2])):
+        (Ux, auxx), gx = x
+        (Uy, auxy), gy = y
+        assert torch.equal(Ux, Uy) and torch.equal(gx, gy)
+        assert all(torch.equal(p, q) for p, q in zip(auxx, auxy))
+    fa, fb = (_tensors(f) for f in (first[1], again[1]))
+    assert len(fa) == len(fb) and all(torch.equal(p, q) for p, q in zip(fa, fb))
+    # the stale factor's 10 refinement steps reach the fresh eval's value
+    (U, _), _ = first[0]
+    (Us, _), _ = first[2]
+    assert float(((Us - U).abs() / U.abs()).max()) < U_TOL
 
 
 def test_forward_constants_are_built_once():
@@ -167,32 +224,43 @@ def test_cpu_problem_gets_the_eager_closure(jax_case):
         assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > COS_MIN
 
 
-def _on_card(method: str):
+def _on_card(method: str, inv: str = "lu"):
     """A stand-in problem that reports a CUDA device and an engine; the
     dispatch reads nothing else, and nothing here touches a card."""
-    cfg = SolveConfig(torch.complex64, 6, method)
+    cfg = SolveConfig(torch.complex64, 6, method, inv)
     return types.SimpleNamespace(device=torch.device("cuda", 0),
-                                 fwd=types.SimpleNamespace(cfg=cfg))
+                                 fwd=types.SimpleNamespace(cfg=cfg),
+                                 factor_state=lambda m: None)
 
 
-@pytest.mark.parametrize("method", ["thomas", "bcr", "thomas_blocked"])
-def test_graphed_raises_where_it_cannot_serve(method):
-    """graphed=True raises on a CPU problem and on another engine; the
-    default gives those the eager closure."""
-    cpu, _ = entry.flagship_problem(tiny=True, device="cpu", cfg=FUSED)
+@pytest.mark.parametrize("method,inv", ENGINES + [("fused", "lu")])
+def test_graphed_serves_every_engine_on_the_card(method, inv):
+    """Every engine and inverse on a CUDA problem gets the graphs by
+    default, and with graphed=True; the sampler's factor is then the
+    graph's own, and graphed=False keeps the eager closure and factor.
+    graphed=True raises on a CPU problem, whose default is eager."""
+    prob = _on_card(method, inv)
+    for graphed in (None, True):
+        vg = make_potential_vg(prob, 1.0, graphed=graphed)
+        assert isinstance(vg, G.GraphedPotential) and vg.captures == {}
+        assert make_factor_fn(prob, vg) == vg.factor
+    eng = BatchedSampler(prob, 1.0, amortize=True)
+    assert isinstance(eng.potential_vg, G.GraphedPotential)
+    assert eng.factor_fn == eng.potential_vg.factor and eng.release() == []
+    eager = BatchedSampler(prob, 1.0, amortize=True, graphed=False)
+    assert not isinstance(eager.potential_vg, G.GraphedPotential)
+    assert eager.factor_fn == prob.factor_state and eager.release() == []
+    assert BatchedSampler(prob, 1.0, amortize=False).factor_fn is None
+    cpu = types.SimpleNamespace(device=torch.device("cpu"), fwd=prob.fwd)
     with pytest.raises(ValueError, match="CUDA problem"):
         make_potential_vg(cpu, 1.0, graphed=True)
-    with pytest.raises(ValueError, match="fused engine"):
-        make_potential_vg(_on_card(method), 1.0, graphed=True)
-    with pytest.raises(ValueError, match="fused engine"):
-        G.GraphedPotential(_on_card(method), 1.0)
-    assert not isinstance(make_potential_vg(_on_card(method), 1.0), G.GraphedPotential)
+    assert not isinstance(make_potential_vg(cpu, 1.0), G.GraphedPotential)
 
 
 def test_fused_cuda_problem_gets_the_graph_by_default():
     """The default serves a CUDA problem on the fused engine from the graph
     (built lazily: nothing is captured before the first call), False gives
-    the eager closure, and a stale factor is refused."""
+    the eager closure, and a stale factor it did not make is refused."""
     prob = _on_card("fused")
     vg = make_potential_vg(prob, 1.0)
     assert isinstance(vg, G.GraphedPotential) and vg.captures == {}
@@ -202,6 +270,184 @@ def test_fused_cuda_problem_gets_the_graph_by_default():
         vg(m, m, fac=object())
     with pytest.raises(ValueError, match="problem is on"):
         vg(m, m)
+    with pytest.raises(ValueError, match="problem is on"):
+        vg.factor(m)
+    assert vg.captures == {}
+
+
+def _stand_in_capture(kind: str, out) -> G.Capture:
+    return G.Capture(kind, None, (torch.zeros(2, 3),), out, {}, {}, 0.0, 0)
+
+
+def test_graphed_potential_refuses_a_foreign_factor():
+    """The stale eval takes only the static output of its own factor graph:
+    an eager factor of the same model, another graph's factor, or its own
+    factor after ``release`` dropped the graph, all raise before anything
+    is captured or replayed."""
+    prob, m0 = entry.flagship_problem(tiny=True, device="cpu",
+                                      cfg=SolveConfig(torch.complex64, 6, "bcr"))
+    m = torch.as_tensor(chain_models(m0, 2).astype(np.float32))
+    eager_fac = prob.factor_state(m)
+    vg, other = G.GraphedPotential(_on_card("bcr"), 1.0), G.GraphedPotential(_on_card("bcr"), 1.0)
+    own = ("factor",) + G._signature(m)
+    vg.captures[own] = _stand_in_capture("factor", eager_fac)
+    other_fac = prob.factor_state(m + 0.01)
+    other.captures[own] = _stand_in_capture("factor", other_fac)
+    assert vg._factor_key(eager_fac) == own       # its own static output
+    for foreign in (prob.factor_state(m), other_fac, eager_fac._replace(s=eager_fac.s)):
+        with pytest.raises(ValueError, match="stale factor that this graphed eval"):
+            vg(m, m, foreign)
+    # an eval capture's output is no factor
+    vg.captures[("eval",) + G._signature(m, m)] = _stand_in_capture("eval", other_fac)
+    with pytest.raises(ValueError, match="stale factor"):
+        vg(m, m, other_fac)
+    summaries = vg.release()
+    assert [c["kind"] for c in summaries] == ["factor", "eval"] and vg.captures == {}
+    with pytest.raises(ValueError, match="stale factor"):
+        vg(m, m, eager_fac)
+
+
+class _RerunGraph:
+    """A stand-in for a CUDA graph on the CPU: a replay reruns the captured
+    function on the static inputs and writes its results into the static
+    outputs, in place, as a graph's replay rewrites its buffers."""
+
+    def __init__(self, fn, inputs, out):
+        self.fn, self.inputs, self.out = fn, inputs, out
+
+    def replay(self):
+        for dst, src in zip(_tensors(self.out), _tensors(self.fn(*self.inputs))):
+            dst.copy_(src)
+
+
+def _emulated_capture(self, kind, fn, inputs):
+    static = tuple(x.clone() for x in inputs)
+    out = fn(*static)
+    return G.Capture(kind, _RerunGraph(fn, static, out), static, out, {}, {}, 0.0, 0)
+
+
+@pytest.mark.parametrize("method,inv", [("thomas", "lu"), ("bcr", "gj")])
+def test_graphed_trajectory_with_emulated_graphs_equals_eager(method, inv, monkeypatch):
+    """The graphed potential's bookkeeping, with each capture emulated on
+    the CPU by a graph that reruns its function into static buffers: an
+    amortised leapfrog (5 steps, refactoring every 2) through the fresh
+    eval, the factor graph and the stale eval graph equals the eager one
+    bit for bit, so the stale eval reads the factor graph's outputs as the
+    last factor replay left them; a factor is the graph's one static
+    output, and each eval returns fresh tensors."""
+    from hmcmt2d_tpu_torch.sampler import hmc as H
+
+    prob, m0 = entry.flagship_problem(tiny=True, device="cpu",
+                                      cfg=SolveConfig(torch.complex64, 6, method, inv))
+    monkeypatch.setattr(G.GraphedPotential, "_capture", _emulated_capture)
+    vg = G.GraphedPotential(_on_card(method, inv), 1.0)
+    vg.problem = prob                      # served on the CPU by the emulation
+    eager = make_potential_vg(prob, 1.0, graphed=False)
+    rng = np.random.default_rng(8)
+    m = torch.as_tensor(m0 + 0.1 * rng.standard_normal((2, len(m0))), dtype=torch.float32)
+    p0 = torch.as_tensor(np.clip(rng.standard_normal(m.shape), -2.5, 2.5), dtype=torch.float32)
+    opts = H.HMCOptions(dt=0.02, steps_lo=5, steps_hi=5, log_sig_lo=float(np.log(1e-4)),
+                        log_sig_hi=float(np.log(10.0)), reg_param=1.0, refactor_every=2)
+    mass = H.identity_mass(len(m0), torch.float32, "cpu")
+    runs = []
+    for fn, factor in ((vg, make_factor_fn(prob, vg)), (eager, make_factor_fn(prob))):
+        state = H.sample_chain_init(fn, m, m)
+        prop, p1 = H._leapfrog(fn, opts, mass, state, p0, m, 5, opts.dt, factor_fn=factor)
+        runs.append(tuple(prop) + (p1,))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert sorted(c.kind for c in vg.captures.values()) == ["eval", "factor", "stale"]
+    fac = vg.factor(m)
+    assert vg.factor(m + 0.01) is fac
+    (U1, _), g1 = vg(m, m, fac)
+    (U2, _), g2 = vg(m, m, fac)
+    assert torch.equal(U1, U2) and U1 is not U2 and g1 is not g2
+    assert len(vg.captures) == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_lu_inverse_equals_linalg_inv_at_a_thomas_line(dtype):
+    """The engines' LU inverse is ``torch.linalg.inv`` without its error
+    check: bit for bit at q = 95 on a flagship thomas line's batch (C = 8
+    chains x 11 frequencies x 2 modes)."""
+    rng = np.random.default_rng(3)
+    n, B = 95, 176
+    a = (rng.standard_normal((B, n, n)) + 1j * rng.standard_normal((B, n, n))
+         + 4 * n * np.eye(n)) / n
+    A = torch.as_tensor(a, dtype=dtype)
+    assert S.INV_FN["lu"] is S.lu_inverse
+    assert torch.equal(S.lu_inverse(A), torch.linalg.inv(A))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_lu_inverse_equals_linalg_inv_at_each_bcr_level(dtype):
+    """Every batch of blocks a bcr factor inverts (the tiny flagship's
+    levels, batch (nfreq, C, modes, lines), q = 11) gives the same bits
+    under ``lu_inverse`` and ``torch.linalg.inv``, and so the same factor."""
+    prob, m0 = entry.flagship_problem(tiny=True, device="cpu",
+                                      cfg=SolveConfig(dtype, 6, "bcr"))
+    m = torch.as_tensor(chain_models(m0, 2).astype(np.float32))
+    seen = []
+
+    def recorded(A):
+        X = S.lu_inverse(A)
+        assert torch.equal(X, torch.linalg.inv(A))
+        seen.append(tuple(A.shape))
+        return X
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setitem(S.INV_FN, "lu", recorded)
+        fac = prob.factor_state(m)
+    finally:
+        mp.undo()
+    nzi = prob.mesh.nz - 1
+    assert len(seen) == nzi.bit_length() == len(fac.fac.levels)
+    assert seen[0][:-3] == (prob.fwd.data.n_freq, 2, 2)
+    assert all(torch.equal(x, y) for x, y in zip(_tensors(fac), _tensors(prob.factor_state(m))))
+
+
+def test_lu_inverse_of_a_singular_block_is_not_finite():
+    """A singular block gives non-finite values where ``torch.linalg.inv``
+    raises (as JAX's ``jnp.linalg.inv``), and the other blocks of the batch
+    their inverses."""
+    A = torch.eye(3, dtype=torch.complex64).repeat(2, 1, 1)
+    A[1] = 0
+    X = S.lu_inverse(A)
+    assert torch.equal(X[0], A[0]) and not bool(torch.isfinite(X[1]).all())
+    with pytest.raises(torch.linalg.LinAlgError):
+        torch.linalg.inv(A)
+
+
+@pytest.mark.parametrize("method,per_factor", [("thomas", 55), ("thomas_blocked", 55),
+                                               ("bcr", 6)])
+def test_gj_factor_replay_counts_its_inverses(method, per_factor):
+    """A factor under ``inv_method="gj"`` at the flagship's 55 z-lines
+    inverts its blocks in 55 batched calls (thomas, thomas_blocked: one a
+    line) or 6 (bcr: one a level), each one ``gj_inverse`` launch on the
+    card; a factor graph's capture records that delta, and each replay adds
+    it."""
+    rng = np.random.default_rng(7)
+    nzi, q = 55, 4
+    sys_ = S.InteriorSystem(
+        torch.as_tensor(4.0 + rng.standard_normal((2, nzi, q))
+                        + 0.5j * rng.standard_normal((2, nzi, q))),
+        torch.as_tensor(1.0 + 0.1 * rng.standard_normal((2, nzi, q - 1))),
+        torch.as_tensor(1.0 + 0.1 * rng.standard_normal((2, nzi - 1, q))))
+    calls = []
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setitem(S.INV_FN, "gj", lambda A: calls.append(A.shape) or FF.gj_inverse(A))
+        S.factorize(sys_, dtype=torch.complex64, method=method, inv_method="gj")
+    finally:
+        mp.undo()
+    assert len(calls) == per_factor
+    FF.reset_launches()
+    delta = FF.launch_delta(FF.launches(), {"gj_inverse": len(calls)})
+    for k in (1, 2, 3):
+        FF.add_launches(delta)
+        assert FF.launches() == {"schur_factor": 0, "bt_sweep_fwd": 0, "bt_sweep_bwd": 0,
+                                 "gj_inverse": k * per_factor}
+    FF.reset_launches()
 
 
 @pytest.mark.parametrize("k", [0, 1, 2, 7])
@@ -222,3 +468,49 @@ def test_replayed_launches_add_the_capture_delta(k):
     FF.add_launches(FF.launch_delta(FF.launches(), before))
     assert FF.launches() == before
     FF.reset_launches()
+
+
+def test_hybrid_run_on_emulated_graphs_equals_eager_and_releases_them(monkeypatch, capsys):
+    """A whole hybrid run (warmup on complex64 thomas, trajectory-amortised;
+    the rest on complex128 thomas) with every eval served by the graphed
+    potential, its captures emulated on the CPU, equals the eager run bit
+    for bit; at the switch the warmup engine's three graphs (fresh eval,
+    factor, stale eval) are released and logged with their pool bytes."""
+    from hmcmt2d_tpu_torch.io import HMCConfig
+    from hmcmt2d_tpu_torch.sampler import driver as D
+    from tests.test_e2e import tiny_setup
+    from tests.torch_parity import port_setup
+
+    mesh, start_sig, data, obs, err = tiny_setup()
+    tmesh, tdata = port_setup(mesh, data)
+    cfg = HMCConfig(burnin=4, total_samples=8, sig_bounds=(1e-4, 10.0), dt=0.05,
+                    timestep=(2, 3), reg_param=1.0, seed=0, adapt=True)
+
+    def run():
+        return D.run_inversion(cfg, tmesh, start_sig, tdata, obs, err, n_chains=2,
+                               device="cpu", solve_cfg=SolveConfig(torch.complex128, 0),
+                               warmup_solve_cfg=SolveConfig(torch.complex64, 3, "thomas"),
+                               verbose=True)
+
+    eager = run().result
+    capsys.readouterr()
+    made = []
+
+    def capture(self, kind, fn, inputs):
+        made.append((self.problem.fwd.cfg.solver_method, self.problem.fwd.cfg.solve_dtype, kind))
+        return _emulated_capture(self, kind, fn, inputs)
+
+    monkeypatch.setattr(G, "unservable", lambda problem: None)
+    monkeypatch.setattr(G.GraphedPotential, "_capture", capture)
+    graphed = run().result
+    log = capsys.readouterr().out
+    for name in ("models", "stats", "accepts", "pred", "lf_steps"):
+        assert torch.equal(getattr(graphed, name), getattr(eager, name)), name
+    warm = [(k, torch.complex64) for k in ("eval", "factor", "stale")]
+    assert [(dt, k) for _, dt, k in made[:3]] == [(dt, k) for k, dt in warm]
+    assert [k for _, dt, k in made[3:]] == ["eval", "factor", "stale"]
+    released = [line for line in log.splitlines() if "released the warmup engine's" in line]
+    assert [line.split("engine's ")[1].split()[0] for line in released] == [
+        "eval", "factor", "stale"]
+    assert all("pool 0 bytes" in line for line in released)
+    assert log.index("hybrid: warmup engine") < log.index(released[0])
