@@ -56,19 +56,26 @@ Phases, each of which exits non-zero on failure:
    evaluations (graphed: one fused capture a run), and every output file
    checked;
 8. the sharded sampler (``hmcmt2d_tpu_torch.parallel``) in ranks spawned on
-   the card, each group with its own wall limit (the sharded path is
-   eager, so it is held to phase 5's eager run, and 8c to the eager single
-   process, ``graphed=False``): (a) one NCCL rank on a
-   (1 x 1) mesh runs phase 5's samples and must equal them bit for bit;
-   (b) two gloo ranks on a (2 chains x 1 freq) mesh run them at B = 88
-   systems a rank, held to phase 5 within tolerance, with the two ranks'
-   samples/s beside phase 5's; (c) four gloo ranks on a (2 x 2) mesh warm
-   up and sample the tiny flagship, held exactly to one process on the
-   card that sums in the ranks' order, and within looser limits to the
-   plain single process, limits that two faulty controls must break;
-   every rank launches each kernel (1, 14, 14) times a fused eval;
-   (d) ``hmcmt2d-torch run`` in two gloo processes joined with
-   --coordinator on phase 7's files, cut shorter: rank 0 alone writes;
+   the card, each group with its own wall limit, each rank's local eval
+   (and amortised cube factor and stale eval) served from CUDA graphs by
+   default, the freq-group sum after the replay: (a) one NCCL rank on a
+   (1 x 1) mesh runs phase 5's samples graphed and then eager, each bit
+   for bit with phase 5's graphed and eager run; (b) two gloo ranks on a
+   (2 chains x 1 freq) mesh run them at B = 88 systems a rank, graphed,
+   eager and eager again, unamortised and trajectory-amortised
+   (``refactor_every`` 2): graphed equal to eager bit for bit where the
+   two eager runs agree, else within their spread, with the same launches;
+   eager held to phase 5 within tolerance; the ms an eval of each, capture
+   seconds and pool bytes a rank; (c) four gloo ranks on a (2 x 2) mesh
+   warm up and sample the tiny flagship, graphed, held exactly to one
+   process on the card that sums in the ranks' order, and within looser
+   limits to the plain single process, limits that two faulty controls
+   must break; beside that drift, the plain process's spread over seeds
+   0-3; every rank launches each kernel (1, 14, 14) times a fused eval and
+   reports every rank's graphs released; (d) ``hmcmt2d-torch run`` in two
+   gloo processes joined with --coordinator on phase 7's files, cut
+   shorter: rank 0 alone writes, and logs each rank's warmup graphs
+   released at the switch;
 9. (a) one-mode surveys at full width: the flagship with Z_XY + tipper and
    with rho/phase YX only, C = 8 (B = 88 systems), one value-and-grad each
    on the kernels with its launch counts, held to complex128 thomas;
@@ -898,6 +905,7 @@ FLIP_MARGIN = 1e-6       # |u - exp(dH)| under which a flipped accept is reporte
 DT_REL_TOL_8C, MODEL_REL_TOL_8C = 1e-5, 1e-4
 DT_REL_TOL_8C_PLAIN, MODEL_REL_TOL_8C_PLAIN = 3e-2, 2e-3
 TINY_C = 4
+DRIFT_SEEDS = (0, 1, 2, 3)   # the plain tiny warmup's seeds, for the drift's yardstick
 
 
 def tiny_inputs(torch, dev):
@@ -956,11 +964,21 @@ def serial_mesh_vg(torch, problem, n_chain, n_freq, fault=None):
     return vg
 
 
+# phase 8's flagship runs a group makes, in order: (name, graphed,
+# refactor_every; 0 is unamortised)
+SHARDED_RUNS = {"8a": (("graphed", True, 0), ("eager", False, 0)),
+                "8b": (("graphed", True, 0), ("eager", False, 0), ("eager_again", False, 0),
+                       ("amortised_graphed", True, 2), ("amortised_eager", False, 2),
+                       ("amortised_eager_again", False, 2))}
+
+
 def sharded_rank(dev, n_chain, n_freq, job):
-    """One rank of phase 8: ``job`` "flagship" runs phase 5's three samples
-    through ShardedSampler.run, "tiny" a 4-iteration median-pooled warmup
-    and a 2-sample run; launch counts set to 0 just before, read just
-    after."""
+    """One rank of phase 8: ``job`` "8a" or "8b" runs phase 5's three
+    samples through ShardedSampler.run once for each entry of
+    SHARDED_RUNS[job] (graphed or eager, unamortised or trajectory-
+    amortised), "tiny" a 4-iteration median-pooled warmup and a 2-sample
+    run, graphed; launch counts set to 0 just before each run, read just
+    after; a graphed sampler's captures released after its run."""
     import dataclasses
 
     import torch
@@ -971,38 +989,68 @@ def sharded_rank(dev, n_chain, n_freq, job):
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
     from hmcmt2d_tpu_torch.parallel.multichain import ShardedSampler, make_device_mesh
     from hmcmt2d_tpu_torch.sampler import hmc as H
+    from hmcmt2d_tpu_torch.sampler.graphed import GraphedPotential
 
     mesh = make_device_mesh(n_chain, n_freq, device=dev)
     out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
-           "device": f"{dev} {torch.cuda.get_device_name(dev)}"}
-    if job == "flagship":
-        problem, _, m, m_ref = flagship_inputs(torch, dev)
-        ss = ShardedSampler(problem, 1.0, mesh, amortize=False)
-        mass = H.identity_mass(problem.n_param, torch.float32, dev)
+           "device": f"{dev} {torch.cuda.get_device_name(dev)}", "runs": {}}
+
+    def timed(ss, sample):
         torch.cuda.synchronize()
         FF.reset_launches()
         t0 = time.perf_counter()
-        res = ss.run(hmc_options(H), mass, m, m_ref, 3, SEED)
+        res, lf, extra = sample(ss)
         torch.cuda.synchronize()
-        lf = res.lf_steps[:, 0].cpu().numpy()
-        evals = 1 + int(lf.sum())
+        return res, lf, extra, time.perf_counter() - t0, FF.launches()
+
+    def measured(ss, sample):
+        res, lf, extra, wall, launches = timed(ss, sample)
+        run = dict(extra, wall_s=wall, launches=launches, evals=1 + int(lf.sum()),
+                   models=res.models.cpu().numpy(), accepts=res.accepts.cpu().numpy(),
+                   stats=res.stats.cpu().numpy(), lf=lf,
+                   graphed=isinstance(ss.local_vg, GraphedPotential))
+        caps = [c.summary() for c in ss.local_vg.captures.values()] if run["graphed"] else []
+        if run["graphed"]:
+            # the same samples again, every graph captured: the replays'
+            # own pace, which a rank's wall less its captures cannot give
+            # (it also waits on the other ranks' captures)
+            again, _, _, wall_again, launches_again = timed(ss, sample)
+            run.update(replayed_wall_s=wall_again, replayed_launches=launches_again,
+                       replayed_same=all(np.array_equal(getattr(again, k).cpu().numpy(), run[k])
+                                         for k in ("models", "accepts", "stats")))
+        released = ss.release()
+        return dict(run, captures=caps, capture_s=sum(c["capture_s"] for c in caps),
+                    pool_bytes=sum(c["pool_bytes"] for c in caps),
+                    released=sorted((c["rank"], c["kind"]) for c in released))
+
+    if job in SHARDED_RUNS:
+        problem, _, m, m_ref = flagship_inputs(torch, dev)
+        mass = H.identity_mass(problem.n_param, torch.float32, dev)
+        for name, graphed, every in SHARDED_RUNS[job]:
+            opts = hmc_options(H)
+            if every:
+                opts = dataclasses.replace(opts, refactor_every=every)
+
+            def sample(ss, opts=opts):
+                res = ss.run(opts, mass, m, m_ref, 3, SEED)
+                return res, res.lf_steps[:, 0].cpu().numpy(), {}
+
+            out["runs"][name] = measured(
+                ShardedSampler(problem, 1.0, mesh, amortize=bool(every), graphed=graphed),
+                sample)
     else:
         problem, m, opts, wopts = tiny_inputs(torch, dev)
-        ss = ShardedSampler(problem, 1.0, mesh, amortize=False)
-        torch.cuda.synchronize()
-        FF.reset_launches()
-        t0 = time.perf_counter()
-        wres, state, wmass, info = ss.warmup(opts, m, m, 4, SEED, wopts)
-        res = ss.run(dataclasses.replace(opts, dt=float(info.dt)), wmass, state.m, m, 2,
-                     SEED, init_state=state)
-        torch.cuda.synchronize()
-        lf = np.concatenate([wres.lf_steps[:, 0].cpu().numpy(),
-                             res.lf_steps[:, 0].cpu().numpy()])
-        evals = 1 + int(lf.sum())
-        out["dt"] = float(info.dt)
-    out.update(wall_s=time.perf_counter() - t0, launches=FF.launches(), evals=evals,
-               models=res.models.cpu().numpy(), accepts=res.accepts.cpu().numpy(),
-               stats=res.stats.cpu().numpy(), lf=lf)
+
+        def sample(ss):
+            wres, state, wmass, info = ss.warmup(opts, m, m, 4, SEED, wopts)
+            res = ss.run(dataclasses.replace(opts, dt=float(info.dt)), wmass, state.m, m, 2,
+                         SEED, init_state=state)
+            lf = np.concatenate([wres.lf_steps[:, 0].cpu().numpy(),
+                                 res.lf_steps[:, 0].cpu().numpy()])
+            return res, lf, {"dt": float(info.dt)}
+
+        out["runs"]["graphed"] = measured(ShardedSampler(problem, 1.0, mesh, amortize=False),
+                                          sample)
     return out
 
 
@@ -1035,105 +1083,232 @@ def flip_margin(torch, vg, opts, mass, m, m_ref, models, i, c):
     return abs(float(u[c]) - float(alpha[c]))
 
 
-def launch_check(name, out):
-    want = {"schur_factor": out["evals"], "bt_sweep_fwd": 14 * out["evals"],
-            "bt_sweep_bwd": 14 * out["evals"]}
-    if out["launches"] != want:
-        fail(f"{name} rank {out['rank']}: launches {out['launches']} != {want} for "
-             f"{out['evals']} fused evals")
+def launch_check(name, rank, run):
+    want = {"schur_factor": run["evals"], "bt_sweep_fwd": 14 * run["evals"],
+            "bt_sweep_bwd": 14 * run["evals"]}
+    if run["launches"] != want:
+        fail(f"{name} rank {rank}: launches {run['launches']} != {want} for "
+             f"{run['evals']} fused evals")
 
 
-def check_sharded(torch, problem, m0, vg, opts, mass, m, m_ref, res5, hmc5_s, smi):
-    """Phase 8: 8a to 8d (see the module docstring); returns the per-rank
-    launch counts of 8a, 8b and 8c."""
-    problem_flagship, m0_flagship = problem, m0
+SAMPLE_KEYS = ("models", "stats", "accepts")
+
+
+def run_summary_8(run) -> dict:
+    """A rank's run in phase 8's lines: seconds and ms an eval (a graphed
+    run's with its captures, and of its replayed second run), its captures
+    and launches."""
+    out = {"wall_s": run["wall_s"], "evals": run["evals"],
+           "ms_per_eval": run["wall_s"] * 1e3 / run["evals"], "launches": run["launches"]}
+    if run["graphed"]:
+        out.update(ms_per_eval_replayed=run["replayed_wall_s"] * 1e3 / run["evals"],
+                   capture_s=run["capture_s"], pool_bytes=run["pool_bytes"],
+                   captures=[(c["kind"], c["capture_s"], c["pool_bytes"])
+                             for c in run["captures"]])
+    return out
+
+
+def replay_check(name, outs) -> None:
+    """Each graphed run's second pass, from its captured graphs, repeated
+    the first bit for bit with the same launches."""
+    for o in outs:
+        for run_name, run in o["runs"].items():
+            if run["graphed"] and not (run["replayed_same"]
+                                       and run["replayed_launches"] == run["launches"]):
+                fail(f"{name} rank {o['rank']} {run_name}: the replayed run differs "
+                     f"(launches {run['replayed_launches']} against {run['launches']})")
+
+
+def graphed_against_eager(name, rank, graphed, eager, eager_again) -> dict:
+    """A rank's graphed run against its two eager runs of the same samples:
+    the same accepts, models and stats bit for bit where the two eager runs
+    agree bit for bit, else within their spread; the same launch counts."""
+    cmp = {}
+    for k in SAMPLE_KEYS:
+        spread = float(np.abs(eager[k].astype(float) - eager_again[k].astype(float)).max())
+        err = float(np.abs(graphed[k].astype(float) - eager[k].astype(float)).max())
+        cmp[k] = {"graphed_vs_eager": err, "eager_spread": spread}
+        if err > spread or (k == "accepts" and err):
+            fail(f"{name} rank {rank}: graphed {k} {err:.3e} from eager (eager spread "
+                 f"{spread:.3e})")
+    if graphed["launches"] != eager["launches"]:
+        fail(f"{name} rank {rank}: graphed launches {graphed['launches']} != eager "
+             f"{eager['launches']}")
+    return cmp
+
+
+def check_released(name, outs) -> None:
+    """Every rank's release() after a graphed run reported every rank's
+    graphs: the fresh eval's, and an amortised run's factor and stale eval
+    graphs too."""
+    for o in outs:
+        for run_name, run in o["runs"].items():
+            if not run["graphed"]:
+                continue
+            kinds = ("eval", "factor", "stale") if "amortised" in run_name else ("eval",)
+            want = [(r, k) for r in range(len(outs)) for k in kinds]
+            if [tuple(c) for c in run["released"]] != want:
+                fail(f"{name} rank {o['rank']} {run_name}: released {run['released']}, "
+                     f"not {want}")
+
+
+def tiny_serial_run(torch, vg_t, opts_t, mt, wopts, seed) -> dict:
+    """Phase 8c's protocol in one process under ``vg_t``: the 4-iteration
+    median-pooled warmup and 2 samples at the adapted dt from ``seed``."""
     from hmcmt2d_tpu_torch.sampler import adapt as A
     from hmcmt2d_tpu_torch.sampler import hmc as H
+
+    t0 = time.perf_counter()
+    _wres, state, wmass, info = A.warmup(vg_t, opts_t, mt, mt, 4, seed, wopts)
+    ref = H.run_hmc(vg_t, dataclasses.replace(opts_t, dt=float(info.dt)),
+                    wmass, state.m, mt, 2, seed, init_state=state)
+    torch.cuda.synchronize()
+    return {"dt": float(info.dt), "accepts": ref.accepts.cpu().numpy(),
+            "models": ref.models.cpu().numpy(), "seconds": time.perf_counter() - t0}
+
+
+def drift_spread(torch, vg_t, opts_t, mt, wopts) -> dict:
+    """The plain single process's 8c runs at seeds 0-3: how far each other
+    seed's adapted dt and models lie from seed 0's (relative), the
+    yardstick of the (2 x 2) drift."""
+    runs = [tiny_serial_run(torch, vg_t, opts_t, mt, wopts, seed) for seed in DRIFT_SEEDS]
+    dts = [r["dt"] for r in runs]
+    m0 = runs[0]["models"]
+    return {"seeds": list(DRIFT_SEEDS), "dt": dts,
+            "dt_rel_to_seed0": [abs(d - dts[0]) / dts[0] for d in dts[1:]],
+            "dt_spread_rel": (max(dts) - min(dts)) / float(np.median(dts)),
+            "model_rel_to_seed0": [float(np.abs(r["models"] - m0).max() / np.abs(m0).max())
+                                   for r in runs[1:]]}
+
+
+def check_sharded(torch, problem, m0, vg, opts, mass, m, m_ref, res5, res5_g, hmc5_s, smi):
+    """Phase 8: 8a to 8d (see the module docstring); returns the per-rank
+    launch counts of 8a, 8b and 8c's graphed runs."""
+    problem_flagship, m0_flagship = problem, m0
     from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg
 
-    want = {k: getattr(res5, k).cpu().numpy() for k in ("models", "stats", "accepts")}
+    want = {k: getattr(res5, k).cpu().numpy() for k in SAMPLE_KEYS}
+    want_g = {k: getattr(res5_g, k).cpu().numpy() for k in SAMPLE_KEYS}
     n_s = want["models"].shape[0]
 
-    # 8a: one NCCL rank, bit for bit
-    (a,), wall_a = spawn_group(torch, 1, 1, "nccl", "flagship")
-    same = {k: bool(np.array_equal(a[k], want[k])) for k in want}
+    # 8a: one NCCL rank, graphed and eager, each bit for bit with phase 5's
+    (a,), wall_a = spawn_group(torch, 1, 1, "nccl", "8a")
+    ga, ea = a["runs"]["graphed"], a["runs"]["eager"]
+    same = {"graphed": {k: bool(np.array_equal(ga[k], want_g[k])) for k in SAMPLE_KEYS},
+            "eager": {k: bool(np.array_equal(ea[k], want[k])) for k in SAMPLE_KEYS}}
     say({"phase": "8a", "mesh": [1, 1], "backend": a["backend"], "device": a["device"],
-         "bit_exact_with_phase5": same, "launches": a["launches"], "evals": a["evals"],
-         "rank_wall_s": a["wall_s"], "group_wall_s": wall_a})
-    if not all(same.values()):
-        fail(f"8a: the (1 x 1) NCCL run differs from phase 5: {same}")
-    launch_check("8a", a)
+         "card": smi, "bit_exact_with_phase5": same,
+         "runs": {k: run_summary_8(r) for k, r in a["runs"].items()},
+         "eager_over_graphed_replayed": ea["wall_s"] / ga["replayed_wall_s"],
+         "eager_over_graphed_with_capture": ea["wall_s"] / ga["wall_s"],
+         "released": ga["released"], "group_wall_s": wall_a})
+    if not all(v for d in same.values() for v in d.values()):
+        fail(f"8a: the (1 x 1) NCCL runs differ from phase 5's: {same}")
+    for run in a["runs"].values():
+        launch_check("8a", a["rank"], run)
+    check_released("8a", [a])
+    replay_check("8a", [a])
 
-    # 8b: two gloo ranks on the card, B = 88 each
-    outs_b, wall_b = spawn_group(torch, 2, 1, "gloo", "flagship")
-    b = outs_b[0]
+    # 8b: two gloo ranks on the card, B = 88 each, graphed and eager,
+    # unamortised and amortised
+    outs_b, wall_b = spawn_group(torch, 2, 1, "gloo", "8b")
+    runs0 = outs_b[0]["runs"]
     for o in outs_b[1:]:
-        for k in ("models", "stats", "accepts"):
-            if not np.array_equal(o[k], b[k]):
-                fail(f"8b: rank {o['rank']}'s {k} differ from rank 0's")
+        for name, run in o["runs"].items():
+            for k in SAMPLE_KEYS:
+                if not np.array_equal(run[k], runs0[name][k]):
+                    fail(f"8b: rank {o['rank']}'s {name} {k} differ from rank 0's")
+    cmp_b = {}
+    for o in outs_b:
+        r = o["runs"]
+        for pre in ("", "amortised_"):
+            cmp_b[f"rank{o['rank']}.{pre or 'unamortised_'}graphed_vs_eager"] = (
+                graphed_against_eager("8b", o["rank"], r[pre + "graphed"], r[pre + "eager"],
+                                      r[pre + "eager_again"]))
+        for name in ("graphed", "eager", "eager_again"):
+            launch_check("8b " + name, o["rank"], r[name])
+    check_released("8b", outs_b)
+    replay_check("8b", outs_b)
+    b = runs0["eager"]
     flips = np.argwhere(b["accepts"] != want["accepts"])
     margins = [flip_margin(torch, vg, opts, mass, m, m_ref, want["models"], int(i), int(c))
                for i, c in flips]
     keep = np.setdiff1d(np.arange(C), flips[:, 1]) if len(flips) else np.arange(C)
     rel = float(np.abs(b["models"][:, keep] - want["models"][:, keep]).max()
                 / np.abs(want["models"][:, keep]).max())
-    wall_ranks = max(o["wall_s"] for o in outs_b)
+
+    def per_eval(name, wall="wall_s"):
+        """The two ranks' ms an eval: the slower rank's seconds over its evals."""
+        return max(o["runs"][name][wall] for o in outs_b) * 1e3 / runs0[name]["evals"]
+
+    graphed_runs = [name for name in runs0 if runs0[name]["graphed"]]
+
     say({"phase": "8b", "mesh": [2, 1], "card": smi,
-         "devices": [o["device"] for o in outs_b], "backend": b["backend"],
+         "devices": [o["device"] for o in outs_b], "backend": outs_b[0]["backend"],
          "systems_per_rank": C // 2 * problem.fwd.data.n_freq * 2,
-         "flipped_accepts": flips.tolist(),
-         "flip_margins": margins, "model_max_rel_err": rel,
-         "model_rel_tol": MODEL_REL_TOL_8B,
-         "launches": [o["launches"] for o in outs_b], "evals": [o["evals"] for o in outs_b],
-         "rank_wall_s": [o["wall_s"] for o in outs_b], "group_wall_s": wall_b,
-         "samples_per_s_per_chip_two_ranks": C * n_s / wall_ranks,
-         "ms_per_eval_two_ranks": wall_ranks * 1e3 / b["evals"],
+         "eager_against_phase5": {"flipped_accepts": flips.tolist(), "flip_margins": margins,
+                                  "model_max_rel_err": rel,
+                                  "model_rel_tol": MODEL_REL_TOL_8B},
+         "graphed_against_eager": cmp_b,
+         "runs": {f"rank{o['rank']}": {k: run_summary_8(r) for k, r in o["runs"].items()}
+                  for o in outs_b},
+         "ms_per_eval_two_ranks": {name: per_eval(name) for name in runs0},
+         "ms_per_eval_two_ranks_replayed": {name: per_eval(name, "replayed_wall_s")
+                                            for name in graphed_runs},
+         "eager_over_graphed_replayed": per_eval("eager")
+         / per_eval("graphed", "replayed_wall_s"),
+         "amortised_eager_over_graphed_replayed": per_eval("amortised_eager")
+         / per_eval("amortised_graphed", "replayed_wall_s"),
+         "samples_per_s_per_chip_two_ranks": {
+             name: C * n_s / max(o["runs"][name]["wall_s"] for o in outs_b)
+             for name in runs0},
          "samples_per_s_per_chip_phase5": C * n_s / hmc5_s,
-         "ms_per_eval_phase5": hmc5_s * 1e3 / int(res5.lf_steps[:, 0].sum())})
+         "ms_per_eval_phase5_eager": hmc5_s * 1e3 / int(res5.lf_steps[:, 0].sum()),
+         "group_wall_s": wall_b})
     if len(flips) > 1 or any(mg >= FLIP_MARGIN for mg in margins):
         fail(f"8b: accepts {flips.tolist()} differ from phase 5 (margins {margins})")
     if not rel <= MODEL_REL_TOL_8B:
         fail(f"8b: models differ from phase 5 by {rel:.3e} relative")
-    for o in outs_b:
-        launch_check("8b", o)
 
-    # 8c: (2 chains x 2 freq), four gloo ranks, against one process on the
-    # card: held exactly to the process that evaluates the potential in the
-    # ranks' batches and summation order, and within looser limits to the
-    # plain single-process run (one batch, autograd's own sum over
+    # 8c: (2 chains x 2 freq), four gloo ranks, graphed, against one process
+    # on the card: held exactly to the process that evaluates the potential
+    # in the ranks' batches and summation order, and within looser limits
+    # to the plain single-process run (one batch, autograd's own sum over
     # frequencies), since in float32 a warmup amplifies that rounding
     # (PERF.md, phase 8); two faulty serial runs are the controls that show
-    # each set of limits catching a wrong sharded path
+    # each set of limits catching a wrong sharded path; and the plain run's
+    # spread over seeds beside that drift
     outs_c, wall_c = spawn_group(torch, 2, 2, "gloo", "tiny")
     problem, mt, opts_t, wopts = tiny_inputs(torch, m.device)
-    c0 = outs_c[0]
+    c0 = outs_c[0]["runs"]["graphed"]
     cmp = {}
+    plain = make_potential_vg(problem, 1.0, graphed=False)
     for name, vg_t in (("serial_mesh", serial_mesh_vg(torch, problem, 2, 2)),
-                       ("plain", make_potential_vg(problem, 1.0, graphed=False)),
+                       ("plain", plain),
                        ("control_prior_scale",
                         serial_mesh_vg(torch, problem, 2, 2, "prior_scale")),
                        ("control_freq_block",
                         serial_mesh_vg(torch, problem, 2, 2, "freq_block"))):
-        t0 = time.perf_counter()
-        wres, state, wmass, info = A.warmup(vg_t, opts_t, mt, mt, 4, SEED, wopts)
-        ref = H.run_hmc(vg_t, dataclasses.replace(opts_t, dt=float(info.dt)),
-                        wmass, state.m, mt, 2, SEED, init_state=state)
-        torch.cuda.synchronize()
-        ref_models = ref.models.cpu().numpy()
-        cmp[name] = {"dt": float(info.dt),
-                     "dt_rel_err": abs(c0["dt"] - float(info.dt)) / float(info.dt),
-                     "accepts_equal": bool(np.array_equal(c0["accepts"],
-                                                          ref.accepts.cpu().numpy())),
-                     "model_max_rel_err": float(np.abs(c0["models"] - ref_models).max()
-                                                / np.abs(ref_models).max()),
-                     "seconds": time.perf_counter() - t0}
-    say({"phase": "8c", "mesh": [2, 2], "backend": c0["backend"],
+        ref = tiny_serial_run(torch, vg_t, opts_t, mt, wopts, SEED)
+        cmp[name] = {"dt": ref["dt"], "dt_rel_err": abs(c0["dt"] - ref["dt"]) / ref["dt"],
+                     "accepts_equal": bool(np.array_equal(c0["accepts"], ref["accepts"])),
+                     "model_max_rel_err": float(np.abs(c0["models"] - ref["models"]).max()
+                                                / np.abs(ref["models"]).max()),
+                     "seconds": ref["seconds"]}
+    spread = drift_spread(torch, plain, opts_t, mt, wopts)
+    say({"phase": "8c", "mesh": [2, 2], "backend": outs_c[0]["backend"],
          "devices": [o["device"] for o in outs_c], "chains": TINY_C, "dt": c0["dt"],
          "against_single_process": cmp, "dt_rel_tol": DT_REL_TOL_8C,
          "model_rel_tol": MODEL_REL_TOL_8C, "plain_dt_rel_tol": DT_REL_TOL_8C_PLAIN,
          "plain_model_rel_tol": MODEL_REL_TOL_8C_PLAIN,
-         "launches": [o["launches"] for o in outs_c], "evals": [o["evals"] for o in outs_c],
-         "rank_wall_s": [o["wall_s"] for o in outs_c], "group_wall_s": wall_c})
+         "drift_from_plain": {"dt_rel": cmp["plain"]["dt_rel_err"],
+                              "model_rel": cmp["plain"]["model_max_rel_err"]},
+         "plain_over_seeds": spread,
+         "drift_inside_seed_spread": bool(
+             cmp["plain"]["dt_rel_err"] <= spread["dt_spread_rel"]
+             and cmp["plain"]["model_max_rel_err"] <= max(spread["model_rel_to_seed0"])),
+         "runs": [run_summary_8(o["runs"]["graphed"]) for o in outs_c],
+         "group_wall_s": wall_c})
 
     def within(name, dt_tol, model_tol):
         c = cmp[name]
@@ -1141,9 +1316,14 @@ def check_sharded(torch, problem, m0, vg, opts, mass, m, m_ref, res5, hmc5_s, sm
                 and c["model_max_rel_err"] <= model_tol)
 
     for o in outs_c:
-        if o["dt"] != c0["dt"] or not np.array_equal(o["models"], c0["models"]):
+        run = o["runs"]["graphed"]
+        if not run["graphed"]:
+            fail(f"8c: rank {o['rank']} ran eagerly")
+        if run["dt"] != c0["dt"] or not np.array_equal(run["models"], c0["models"]):
             fail(f"8c: rank {o['rank']} disagrees with rank 0")
-        launch_check("8c", o)
+        launch_check("8c", o["rank"], run)
+    check_released("8c", outs_c)
+    replay_check("8c", outs_c)
     if not within("serial_mesh", DT_REL_TOL_8C, MODEL_REL_TOL_8C):
         fail(f"8c: against the ranks' summation order {cmp['serial_mesh']}")
     if not within("plain", DT_REL_TOL_8C_PLAIN, MODEL_REL_TOL_8C_PLAIN):
@@ -1155,15 +1335,23 @@ def check_sharded(torch, problem, m0, vg, opts, mass, m, m_ref, res5, hmc5_s, sm
             fail(f"8c: limits ({dt_tol}, {model_tol}) do not catch the {name} fault: "
                  f"{cmp[name]}")
     check_sharded_cli(problem_flagship, m0_flagship, smi)
-    return {"8a": [a["launches"]], "8b": [o["launches"] for o in outs_b],
-            "8c": [o["launches"] for o in outs_c]}
+    return {"8a": [a["runs"]["graphed"]["launches"]],
+            "8b": [o["runs"]["graphed"]["launches"] for o in outs_b],
+            "8c": [o["runs"]["graphed"]["launches"] for o in outs_c]}
+
+
+SHARDED_RELEASE = (r"released the warmup engine's (\w+) graph on rank (\d+) \(C=(\d+)\): "
+                   r"pool (\d+) bytes, captured in ([\d.]+) s")
 
 
 def check_sharded_cli(problem, m0, smi):
     """8d: ``hmcmt2d-torch run`` in two gloo processes sharing the card,
     joined with --coordinator, on phase 7's files cut to burn-in 4,
     ``masswarmup: 2`` and 4 main samples: rank 0 alone prints and writes
-    every output file and the checkpoint."""
+    every output file and the checkpoint, and logs each rank's warmup
+    graphs (fresh eval, factor, stale eval on bcr) released at the
+    switch."""
+    import re
     import tempfile
 
     from hmcmt2d_tpu_torch.parallel.multichain import free_port
@@ -1202,11 +1390,19 @@ def check_sharded_cli(problem, m0, smi):
             acc = float(z["accepts"][n_warm:].mean())
     log0, log1 = outs[0][0], outs[1][0]
     secs = phase_seconds(log0)
+    released = [(int(r), kind, int(c), int(pool), float(cap))
+                for kind, r, c, pool, cap in re.findall(SHARDED_RELEASE, log0)]
     say({"phase": "8d", "cli_run": "hmcmt2d-torch run, 2 gloo ranks on one card",
          "card": smi, "wall_s": wall, "phase_s": secs, "checkpoint_path": kind,
          "rows": int(rows), "n_warm": n_warm, "main_accept_rate": acc,
          "main_samples_per_s_per_chip": 8 * 4 / secs["main"] if secs["main"] else None,
+         "warmup_graphs_released": [dict(zip(("rank", "kind", "chains", "pool_bytes",
+                                              "capture_s"), r)) for r in released],
          "rank1_printed": [ln for ln in log1.splitlines() if "[hmcmt2d]" in ln]})
+    want = [(r, k) for r in range(2) for k in ("eval", "factor", "stale")]
+    if (sorted((r, k) for r, k, *_ in released) != want
+            or any(c != 4 for _, _, c, _, _ in released)):
+        fail(f"8d: released warmup graphs {released}, not each rank's (C=4) {want}")
     if missing:
         fail(f"8d: missing output files {missing}")
     if "device mesh: chains=2 x freq=1" not in log0 or "[hmcmt2d]" in log1:
@@ -2304,8 +2500,8 @@ def main() -> None:
     # phase 12: the graphed eval against the eager one, on phase 4's inputs
     graph_summary = check_graphed(torch, problem, vg, vg_eager, m, m_ref, smi)
 
-    # phase 5: a few HMC iterations on the main path, eager (phase 8's
-    # reference) and graphed (the default), from the same state
+    # phase 5: a few HMC iterations on the main path, eager and graphed (the
+    # default), from the same state: phase 8a's references
     opts = hmc_options(H)
     mass = H.identity_mass(problem.n_param, torch.float32, dev)
     init = H.ChainState(m=m, grad=g, misfit=misfit, mnorm=mnorm, pred=pred)
@@ -2349,7 +2545,7 @@ def main() -> None:
 
         # phase 8: the sharded sampler in spawned ranks
         sharded_launches = check_sharded(torch, problem, m0, vg_eager, opts, mass, m,
-                                         m_ref, res, hmc_s, smi)
+                                         m_ref, res, res_g, hmc_s, smi)
 
         # phase 9: one-mode surveys, then the checkpoint tools on phase 7's run
         single_launches = check_single_mode(torch, m, m_ref, eval_ms, smi)

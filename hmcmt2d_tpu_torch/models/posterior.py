@@ -135,7 +135,11 @@ class InverseProblem:
         of a k-way frequency split passes ``prior_scale = 1/k``, so that the
         sum over the k ranks of this value and of its gradient is the global
         potential and gradient.  Returns (U, (misfit, mnorm, cube)), the
-        cube flattened to (..., nfreq_local * nrx * ncomp)."""
+        cube flattened to (..., nfreq_local * nrx * ncomp).  ``obs_cube``
+        and ``w_cube`` are used as they are when they are tensors on the
+        problem's device (the sharded sampler's, built once, so its graphs
+        capture this eval); arrays are copied to the device in every
+        call."""
         dev = self.device
         cube = self.fwd.response_cube(self.sigma2d(m), freqs=freqs, fac=fac)
         # flat and contiguous, as the masked misfit reduces it

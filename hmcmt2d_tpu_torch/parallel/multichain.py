@@ -20,6 +20,16 @@ predicted data masked onto the observed triples as ``run_hmc`` returns
 them.  A carried :class:`ChainState` holds the whole response cube,
 flattened, as its ``pred``.  Every rank makes the same collectives in the
 same order, since each branches only on values that every rank shares.
+
+On a CUDA problem each rank's local work is served from CUDA graphs
+(:class:`~hmcmt2d_tpu_torch.sampler.graphed.GraphedPotential`, as the JAX
+package jits its ``shard_map`` programs): its frequency block's
+value-and-grad with the float64 packing of its four terms, the
+trajectory-amortised cube factor and the eval against that factor.  The freq-group ``all_reduce`` runs on
+the replay's output, outside the graph: a graphed eval equals the eager
+one bit for bit, and the graph holds no collective, so it serves gloo
+(which ranks sharing a card run, and which cannot be captured) and NCCL
+alike.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import torch.distributed as dist
 from ..models.posterior import InverseProblem
 from ..ops import solver
 from ..sampler import adapt as A
+from ..sampler import graphed as G
 from ..sampler import hmc as H
 from ..utils.collectives import all_gather_cat, all_reduce_sum
 
@@ -153,10 +164,16 @@ class ShardedSampler:
     """Warmup and sampling over a (chains, freq) ``DeviceMesh``, with the
     calls and results of the single-process sampler (``run`` as
     ``hmc.run_hmc``, ``warmup`` as ``adapt.warmup``, ``warmup_scan`` as
-    ``adapt.warmup_scan``).  ``problem`` lives on this rank's device."""
+    ``adapt.warmup_scan``).  ``problem`` lives on this rank's device.
+
+    ``graphed`` as in
+    :class:`~hmcmt2d_tpu_torch.sampler.driver.BatchedSampler`: None serves
+    a CUDA problem's local eval, cube factor and stale eval from CUDA
+    graphs and a CPU problem eagerly; True raises where the graphs cannot
+    serve; False is the eager path."""
 
     def __init__(self, problem: InverseProblem, reg: float, mesh,
-                 amortize: bool = True):
+                 amortize: bool = True, graphed: bool | None = None):
         self.problem, self.reg = problem, reg
         data = problem.fwd.data
         self.n_chain_dev, self.n_freq_dev = mesh.size(0), mesh.size(1)
@@ -174,8 +191,15 @@ class ShardedSampler:
                                 for a in (obs_cube, w_cube))
         self.cube_shape = (data.n_freq, data.n_rx * data.n_comp)
         self.flat_index = torch.as_tensor(data.flat_index, device=problem.device)
-        self.factor_fn = ((lambda m: problem.factor_state_cube(m, self.freqs))
-                          if amortize else None)
+        if graphed is None:
+            graphed = G.unservable(problem) is None
+        if graphed:
+            self.local_vg = G.GraphedPotential(problem, reg, eval_fn=self._local_vg,
+                                               factor_fn=self._factor)
+            factor = self.local_vg.factor
+        else:
+            self.local_vg, factor = self._local_vg, self._factor
+        self.factor_fn = factor if amortize else None
         cfg = problem.fwd.cfg
         if (solver.uses_kernels(cfg.solver_method, cfg.inv_method)
                 and problem.device.type == "cuda"):
@@ -190,17 +214,20 @@ class ShardedSampler:
             kernel_build.library()
 
     # -- potential ---------------------------------------------------------
-    def potential_vg(self, m, m_ref, fac=None):
-        """Value and gradient of the local chains' potential, summed over
-        the freq group: this rank's frequencies plus 1/k of the prior, whose
-        sum over the k frequency ranks is the global potential.  The four
-        terms travel in one float64 all_reduce and come back in their own
-        dtypes (with one frequency rank there is nothing to sum); ``pred``
-        stays this rank's block of the cube."""
-        prob = self.problem
+    def _factor(self, m):
+        """The merged-mode factor of this rank's frequencies (trajectory
+        amortisation)."""
+        return self.problem.factor_state_cube(m, self.freqs)
+
+    def _local_vg(self, m, m_ref, fac=None):
+        """This rank's share of the potential and its gradient, before the
+        freq-group sum (what the graphs capture): with one frequency rank
+        ``((U, (misfit, mnorm, cube)), grad)``, else ``(flat, cube,
+        dtypes)``, the four terms packed as float64 columns of ``flat``
+        beside their own dtypes."""
         m = m.detach().requires_grad_(True)
         with torch.enable_grad():
-            U, (mis, mn, cube) = prob.potential_cube(
+            U, (mis, mn, cube) = self.problem.potential_cube(
                 m, m_ref, self.reg, self.freqs, self.obs_l, self.w_l,
                 prior_scale=1.0 / self.n_freq_dev, fac=fac)
             (g,) = torch.autograd.grad(U.sum(), m)
@@ -208,9 +235,23 @@ class ShardedSampler:
             return (U.detach(), (mis.detach(), mn.detach(), cube.detach())), g
         parts = (U.detach(), mis.detach(), mn.detach(), g)
         flat = torch.cat([p.reshape(m.shape[0], -1).double() for p in parts], dim=1)
+        return flat, cube.detach(), tuple(p.dtype for p in parts)
+
+    def potential_vg(self, m, m_ref, fac=None):
+        """Value and gradient of the local chains' potential, summed over
+        the freq group: this rank's frequencies plus 1/k of the prior, whose
+        sum over the k frequency ranks is the global potential.  The four
+        terms travel in one float64 all_reduce, after the local eval (a
+        graph replay on the card), and come back in their own dtypes (with
+        one frequency rank there is nothing to sum); ``pred`` stays this
+        rank's block of the cube."""
+        out = self.local_vg(m, m_ref, fac)
+        if self.n_freq_dev == 1:
+            return out
+        flat, cube, dtypes = out
         flat = all_reduce_sum(flat, self.freq)
-        U, mis, mn = (flat[:, i].to(p.dtype) for i, p in enumerate(parts[:3]))
-        return (U, (mis, mn, cube.detach())), flat[:, 3:].to(g.dtype)
+        U, mis, mn = (flat[:, i].to(dt) for i, dt in enumerate(dtypes[:3]))
+        return (U, (mis, mn, cube)), flat[:, 3:].to(dtypes[3])
 
     # -- between global and local -----------------------------------------
     def _rows(self, n_global: int) -> tuple[int, int]:
@@ -240,8 +281,17 @@ class ShardedSampler:
         return cube_flat[..., self.flat_index]
 
     def release(self) -> list[dict]:
-        """The sharded path runs eagerly: it holds no graph to free."""
-        return []
+        """Free this rank's graphs and pools (none when eager), as
+        ``BatchedSampler.release`` does, and return every rank's capture
+        summaries, each with its ``rank``.  Collective: every rank calls it
+        at the same point (the hybrid run's engine switch)."""
+        vg = self.local_vg
+        rank = dist.get_rank()
+        mine = [dict(c, rank=rank)
+                for c in (vg.release() if isinstance(vg, G.GraphedPotential) else [])]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        return [c for part in every for c in part]
 
     def local_state(self, state: H.ChainState, rows) -> H.ChainState:
         return H.ChainState(m=self._local(state.m, rows), grad=self._local(state.grad, rows),

@@ -133,13 +133,15 @@ class BatchedSampler:
 
 
 def make_sampler(problem: InverseProblem, reg: float, amortize: bool,
-                 device_mesh=None):
-    """A :class:`BatchedSampler`, or over ``device_mesh`` a ShardedSampler."""
+                 device_mesh=None, graphed: bool | None = None):
+    """A :class:`BatchedSampler`, or over ``device_mesh`` a ShardedSampler;
+    either serves a CUDA problem's evals (and its amortised factor) from
+    CUDA graphs by default, ``graphed`` as in :func:`make_potential_vg`."""
     if device_mesh is None:
-        return BatchedSampler(problem, reg, amortize)
+        return BatchedSampler(problem, reg, amortize, graphed)
     from ..parallel.multichain import ShardedSampler
 
-    return ShardedSampler(problem, reg, device_mesh, amortize=amortize)
+    return ShardedSampler(problem, reg, device_mesh, amortize=amortize, graphed=graphed)
 
 
 def mass_kind(cfg: HMCConfig) -> str:
@@ -390,7 +392,8 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
                 # the warmup engine's graphs go before the main engine's
                 # capture theirs
                 for cap in eng_w.release():
-                    log(f"released the warmup engine's {cap['kind']} graph "
+                    on = f" on rank {cap['rank']}" if "rank" in cap else ""
+                    log(f"released the warmup engine's {cap['kind']} graph{on} "
                         f"(C={cap['chains']}): pool {cap['pool_bytes']} bytes, "
                         f"captured in {cap['capture_s']:.3f} s")
             if mkind != "diagonal":

@@ -1,5 +1,8 @@
 """The batched potential value-and-grad, and its trajectory-amortised
-factor, captured once as CUDA graphs.
+factor, captured once as CUDA graphs: the single-process sampler's
+(``sampler/driver.py``, every engine) and a sharded rank's local work
+(``parallel/multichain.py``: its frequency block's value-and-grad, cube
+factor and stale eval; the freq-group reduction runs after the replay).
 
 The port's counterpart of the JAX package's jitted sampler and warmup
 (``hmcmt2d_tpu/sampler/hmc.py``, ``sampler/driver.py``): XLA traces an
@@ -12,7 +15,9 @@ thomas_blocked or bcr with either inverse
 the forward factor, the forward solve and the adjoint solve of
 ``_DirichletSolve.backward``, ``models/forward.py``), is captured into one
 ``torch.cuda.CUDAGraph`` for each shape and dtype of (m, m_ref) and
-replayed in every later call.
+replayed in every later call.  :class:`GraphedPotential` captures any
+such pair of functions: the problem's own by default, a sharded rank's
+when it passes them (``eval_fn``, ``factor_fn``).
 
 Trajectory amortisation (``sampler/hmc.py`` ``_leapfrog``: a factor at the
 trajectory's start and every ``refactor_every`` steps, the steps between
@@ -20,8 +25,9 @@ solving against it) takes two more graphs a shape, as JAX compiles the
 factor and the stale evals into its scan:
 
 * the factor graph, :meth:`GraphedPotential.factor`: m ->
-  ``problem.factor_state(m)``.  Its replay rewrites the factor in the
-  graph's static outputs and returns that same ``Factorization``;
+  ``problem.factor_state(m)`` (or ``factor_fn(m)``).  Its replay rewrites
+  the factor in the graph's static outputs and returns that same
+  ``Factorization``;
 * the stale eval graph, ``vg(m, m_ref, fac)`` with ``fac`` that static
   output: it reads the factor graph's outputs where they lie.
 
@@ -37,11 +43,12 @@ Capture follows PyTorch's recipe for whole-network capture:
 that stream into the graph's own memory pool (one pool a graph: the bench
 interleaves C = 8, 12 and 16, and a factor must survive the stale evals'
 replays that read it).  A call copies its inputs into the graph's static
-inputs and replays it; an eval returns clones of its outputs, since the
-next replay overwrites them and the sampler carries the gradient and pred
-across steps.  A capture or replay error raises; nothing falls back to the
-eager eval.  :meth:`GraphedPotential.release` frees every graph and pool
-(the hybrid run's warmup engine, at the switch to the main one).
+inputs and replays it; an eval returns clones of its output tensors,
+since the next replay overwrites them and the sampler carries the gradient
+and pred across steps.  A capture or replay error raises; nothing falls
+back to the eager eval.  :meth:`GraphedPotential.release` frees every
+graph and pool (the hybrid run's warmup engine, at the switch to the main
+one).
 
 Launch counts: the kernel wrappers count while they are captured, not when
 the graph runs them.  A capture records what :func:`.fused_factor.launches`
@@ -96,22 +103,42 @@ def _signature(*ts: torch.Tensor) -> tuple:
     return tuple((tuple(t.shape), t.dtype) for t in ts)
 
 
-class GraphedPotential:
-    """``vg(m, m_ref, fac=None) -> ((U, (misfit, mnorm, pred)), grad)``, the
-    call of the eager ``make_potential_vg`` closure, and :meth:`factor`,
-    the eager ``make_factor_fn``'s, served by CUDA graphs of ``problem``'s
-    engine, one for each kind and each shape and dtype of the inputs
-    (``captures``)."""
+def _clone(out):
+    """A fresh copy of every tensor of a (nested) tuple; anything else (a
+    dtype) as it is."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, tuple):
+        return tuple(_clone(x) for x in out)
+    return out
 
-    def __init__(self, problem, reg: float):
+
+class GraphedPotential:
+    """``vg(m, m_ref, fac=None)``, the call of the eager ``eval_fn``, and
+    :meth:`factor`, the eager ``factor_fn``'s, served by CUDA graphs on
+    ``problem``'s device, one for each kind and each shape and dtype of the
+    inputs (``captures``).  By default ``eval_fn`` is
+    ``problem.potential_value_and_grad`` at ``reg`` (the eager
+    ``make_potential_vg`` closure's ``((U, (misfit, mnorm, pred)), grad)``)
+    and ``factor_fn`` is ``problem.factor_state`` (the eager
+    ``make_factor_fn``'s); any other pair must make no host round trip
+    after its first call, and ``eval_fn`` returns tensors in (nested)
+    tuples."""
+
+    def __init__(self, problem, reg: float, eval_fn=None, factor_fn=None):
         why = unservable(problem)
         if why:
             raise ValueError(why)
         self.problem, self.reg = problem, reg
+        self.eval_fn = eval_fn or self._problem_eval
+        self.factor_fn = factor_fn or self._problem_factor
         self.captures: dict[tuple, Capture] = {}
 
-    def _eval(self, m, m_ref, fac=None):
+    def _problem_eval(self, m, m_ref, fac=None):
         return self.problem.potential_value_and_grad(m, m_ref, self.reg, fac=fac)
+
+    def _problem_factor(self, m):
+        return self.problem.factor_state(m)
 
     def _capture(self, kind: str, fn, inputs: tuple) -> Capture:
         dev = self.problem.device
@@ -157,11 +184,10 @@ class GraphedPotential:
         return cap.out
 
     def factor(self, m: torch.Tensor):
-        """``problem.factor_state(m)`` from the factor graph: the graph's
-        static ``Factorization``, rewritten in place by every call (see the
-        module docstring); the stale eval takes only this."""
-        return self._replay(("factor",) + _signature(m), "factor",
-                            self.problem.factor_state, (m,))
+        """``factor_fn(m)`` from the factor graph: the graph's static
+        ``Factorization``, rewritten in place by every call (see the module
+        docstring); the stale eval takes only this."""
+        return self._replay(("factor",) + _signature(m), "factor", self.factor_fn, (m,))
 
     def _factor_key(self, fac) -> tuple:
         for key, cap in self.captures.items():
@@ -173,16 +199,15 @@ class GraphedPotential:
 
     def __call__(self, m: torch.Tensor, m_ref: torch.Tensor, fac=None):
         if fac is None:
-            key, kind, fn = ("eval",) + _signature(m, m_ref), "eval", self._eval
+            key, kind, fn = ("eval",) + _signature(m, m_ref), "eval", self.eval_fn
         else:
             key = ("stale", self._factor_key(fac)) + _signature(m, m_ref)
             kind = "stale"
 
             def fn(m_s, r_s):
-                return self._eval(m_s, r_s, fac)
+                return self.eval_fn(m_s, r_s, fac)
 
-        (U, aux), g = self._replay(key, kind, fn, (m, m_ref))
-        return (U.clone(), tuple(a.clone() for a in aux)), g.clone()
+        return _clone(self._replay(key, kind, fn, (m, m_ref)))
 
     def release(self) -> list[dict]:
         """Drop every capture, its graph and its pool, and return the

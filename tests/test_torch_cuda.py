@@ -378,6 +378,54 @@ def test_two_rank_sharded_run_on_card(cuda_device):
     assert np.isfinite(out[0]["misfit"]).all()
 
 
+def _tensors(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for part in x for t in _tensors(part)] if isinstance(x, tuple) else []
+
+
+def graphed_sharded_rank(device, n_freq: int) -> dict:
+    """One rank of a (1 chain x ``n_freq`` freq) mesh on the card: the tiny
+    flagship (fused kernels) through a graphed and an eager ShardedSampler,
+    the fresh eval on two models in turn and the stale eval against each
+    one's amortised factor; whether each graphed output equals the eager
+    one bit for bit, and the released captures."""
+    from hmcmt2d_tpu_torch.parallel.multichain import ShardedSampler, make_device_mesh
+    from hmcmt2d_tpu_torch.sampler.graphed import GraphedPotential
+
+    prob, m0 = entry.flagship_problem(tiny=True, device=device)
+    mesh = make_device_mesh(1, n_freq, device=device)
+    graphed = ShardedSampler(prob, 1.0, mesh)
+    eager = ShardedSampler(prob, 1.0, mesh, graphed=False)
+    rng = np.random.default_rng(9)
+    ma, mb = (torch.as_tensor(m0 + 0.1 * rng.standard_normal((2, len(m0))),
+                              dtype=torch.float32, device=device) for _ in range(2))
+    pairs = [(graphed.potential_vg(mm, ma), eager.potential_vg(mm, ma)) for mm in (ma, mb, ma)]
+    fac_g, fac_e = graphed.factor_fn(mb), eager.factor_fn(mb)
+    pairs.append((graphed.potential_vg(ma, ma, fac_g), eager.potential_vg(ma, ma, fac_e)))
+    equal = [all(torch.equal(a, b) for a, b in zip(_tensors(got), _tensors(want)))
+             for got, want in pairs]
+    return {"graphed": isinstance(graphed.local_vg, GraphedPotential), "equal": equal,
+            "released": sorted((c["rank"], c["kind"]) for c in graphed.release()),
+            "left": len(graphed.local_vg.captures)}
+
+
+@pytest.mark.parametrize("backend,n_freq", [("nccl", 1), ("gloo", 2)])
+def test_graphed_sharded_eval_equals_eager_on_card(cuda_device, backend, n_freq):
+    """A (1 x 1) NCCL mesh and a (1 x 2) gloo mesh of ranks sharing the
+    card: each rank's graphed fresh eval (two models in turn) and stale
+    eval equal its eager ones bit for bit, the freq-group sum after the
+    replay included; release() frees every rank's three graphs."""
+    from hmcmt2d_tpu_torch.parallel.multichain import spawn_ranks
+
+    out = spawn_ranks(graphed_sharded_rank, n_freq, args=(n_freq,), backend=backend,
+                      timeout_s=300)
+    for rank in out:
+        assert rank["graphed"] and rank["equal"] == [True] * 4 and rank["left"] == 0
+        assert [tuple(c) for c in rank["released"]] == [
+            (r, kind) for r in range(n_freq) for kind in ("eval", "factor", "stale")]
+
+
 UNSHARDABLE_STARTUP = """datafile:      obs.dat
 modelfile:     start.mod
 totalsamples:  2

@@ -15,7 +15,6 @@ as ``tests/test_torch_fused.py`` does, and the eager eval is held to it with
 that file's tolerances (U_TOL, GRAD_TOL, COS_MIN).
 """
 
-import contextlib
 import types
 
 import numpy as np
@@ -38,7 +37,8 @@ from hmcmt2d_tpu_torch.ops import solver as S  # noqa: E402
 from hmcmt2d_tpu_torch.sampler import graphed as G  # noqa: E402
 from hmcmt2d_tpu_torch.sampler.driver import (BatchedSampler, make_factor_fn,  # noqa: E402
                                               make_potential_vg)
-from tests.torch_parity import chain_models, jax_problem_with, problem_arrays  # noqa: E402
+from tests.torch_parity import (chain_models, emulated_capture, jax_problem_with,  # noqa: E402
+                                no_host_round_trip, problem_arrays, tensors)
 
 U_TOL = 1e-4      # tests/test_torch_fused.py's limits for the fused config
 GRAD_TOL = 1e-3
@@ -47,46 +47,9 @@ FUSED = SolveConfig(torch.complex64, 6, "fused")
 SURVEYS = {"two_modes": dict(),
            "te_tipper": dict(data_comp=("ZXY", "TZY"), data_type="Impedance_Tipper"),
            "tm_rho_phase": dict(data_comp=("RhoYX", "PhsYX"), data_type="Rho_Phs")}
-# every Tensor method that copies a value to the host and waits on the device
-HOST_READS = ("item", "__bool__", "__int__", "__float__", "tolist", "numpy")
 # the warmup engines, each with both inverses
 ENGINES = [(method, inv) for method in ("thomas", "thomas_blocked", "bcr")
            for inv in ("lu", "gj")]
-
-
-@contextlib.contextmanager
-def no_host_round_trip():
-    """Make every host read of a tensor raise, and ``torch.linalg.inv``
-    (which reads its error code back from the device), and record each
-    ``torch.as_tensor`` / ``torch.tensor`` of data that is not a tensor (a
-    host-to-device copy on the card).  Yields the list of those calls."""
-    made = []
-
-    def refuse(name):
-        def read(self, *a, **k):
-            raise AssertionError(f"host round trip: Tensor.{name}")
-        return read
-
-    def inv(*a, **k):
-        raise AssertionError("host round trip: torch.linalg.inv reads its error code")
-
-    def recorded(fn):
-        def make(data, *a, **k):
-            if not isinstance(data, torch.Tensor):
-                made.append((fn.__name__, type(data).__name__))
-            return fn(data, *a, **k)
-        return make
-
-    mp = pytest.MonkeyPatch()
-    try:
-        for name in HOST_READS:
-            mp.setattr(torch.Tensor, name, refuse(name))
-        mp.setattr(torch, "as_tensor", recorded(torch.as_tensor))
-        mp.setattr(torch, "tensor", recorded(torch.tensor))
-        mp.setattr(torch.linalg, "inv", inv)
-        yield made
-    finally:
-        mp.undo()
 
 
 @pytest.mark.parametrize("survey", sorted(SURVEYS))
@@ -123,15 +86,6 @@ def test_host_reads_are_refused_inside_the_patch():
     assert made == [("as_tensor", "ndarray")]
 
 
-def _tensors(x) -> list:
-    """The tensors of a (nested) factorisation, in order."""
-    if isinstance(x, torch.Tensor):
-        return [x]
-    if isinstance(x, tuple):
-        return [t for part in x for t in _tensors(part)]
-    return []
-
-
 @pytest.mark.parametrize("method,inv", ENGINES)
 def test_engine_evals_and_factor_make_no_host_round_trip_after_their_first(method, inv):
     """Each warmup engine under each inverse (gj through its plain version
@@ -156,7 +110,7 @@ def test_engine_evals_and_factor_make_no_host_round_trip_after_their_first(metho
         (Uy, auxy), gy = y
         assert torch.equal(Ux, Uy) and torch.equal(gx, gy)
         assert all(torch.equal(p, q) for p, q in zip(auxx, auxy))
-    fa, fb = (_tensors(f) for f in (first[1], again[1]))
+    fa, fb = (tensors(f) for f in (first[1], again[1]))
     assert len(fa) == len(fb) and all(torch.equal(p, q) for p, q in zip(fa, fb))
     # the stale factor's 10 refinement steps reach the fresh eval's value
     (U, _), _ = first[0]
@@ -307,25 +261,6 @@ def test_graphed_potential_refuses_a_foreign_factor():
         vg(m, m, eager_fac)
 
 
-class _RerunGraph:
-    """A stand-in for a CUDA graph on the CPU: a replay reruns the captured
-    function on the static inputs and writes its results into the static
-    outputs, in place, as a graph's replay rewrites its buffers."""
-
-    def __init__(self, fn, inputs, out):
-        self.fn, self.inputs, self.out = fn, inputs, out
-
-    def replay(self):
-        for dst, src in zip(_tensors(self.out), _tensors(self.fn(*self.inputs))):
-            dst.copy_(src)
-
-
-def _emulated_capture(self, kind, fn, inputs):
-    static = tuple(x.clone() for x in inputs)
-    out = fn(*static)
-    return G.Capture(kind, _RerunGraph(fn, static, out), static, out, {}, {}, 0.0, 0)
-
-
 @pytest.mark.parametrize("method,inv", [("thomas", "lu"), ("bcr", "gj")])
 def test_graphed_trajectory_with_emulated_graphs_equals_eager(method, inv, monkeypatch):
     """The graphed potential's bookkeeping, with each capture emulated on
@@ -339,7 +274,7 @@ def test_graphed_trajectory_with_emulated_graphs_equals_eager(method, inv, monke
 
     prob, m0 = entry.flagship_problem(tiny=True, device="cpu",
                                       cfg=SolveConfig(torch.complex64, 6, method, inv))
-    monkeypatch.setattr(G.GraphedPotential, "_capture", _emulated_capture)
+    monkeypatch.setattr(G.GraphedPotential, "_capture", emulated_capture)
     vg = G.GraphedPotential(_on_card(method, inv), 1.0)
     vg.problem = prob                      # served on the CPU by the emulation
     eager = make_potential_vg(prob, 1.0, graphed=False)
@@ -403,7 +338,7 @@ def test_lu_inverse_equals_linalg_inv_at_each_bcr_level(dtype):
     nzi = prob.mesh.nz - 1
     assert len(seen) == nzi.bit_length() == len(fac.fac.levels)
     assert seen[0][:-3] == (prob.fwd.data.n_freq, 2, 2)
-    assert all(torch.equal(x, y) for x, y in zip(_tensors(fac), _tensors(prob.factor_state(m))))
+    assert all(torch.equal(x, y) for x, y in zip(tensors(fac), tensors(prob.factor_state(m))))
 
 
 def test_lu_inverse_of_a_singular_block_is_not_finite():
@@ -498,7 +433,7 @@ def test_hybrid_run_on_emulated_graphs_equals_eager_and_releases_them(monkeypatc
 
     def capture(self, kind, fn, inputs):
         made.append((self.problem.fwd.cfg.solver_method, self.problem.fwd.cfg.solve_dtype, kind))
-        return _emulated_capture(self, kind, fn, inputs)
+        return emulated_capture(self, kind, fn, inputs)
 
     monkeypatch.setattr(G, "unservable", lambda problem: None)
     monkeypatch.setattr(G.GraphedPotential, "_capture", capture)

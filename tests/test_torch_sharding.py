@@ -10,6 +10,12 @@ each frequency rank solves one frequency.
 The port's rule, which JAX's sharded sampler does not keep (its chain shards
 draw from ``fold_in(key, shard)``): a sharded run equals the single-process
 run of the same chains, up to the order of reduction.
+
+On the card a rank serves its local work (value-and-grad, cube factor,
+stale eval) from CUDA graphs.  Here the graphs are emulated
+(``tests/torch_parity.py::emulated_capture``: a replay reruns the captured
+function into static buffers), and the local work is held to make no host
+round trip after its first call, which a capture needs.
 """
 
 import numpy as np
@@ -32,8 +38,10 @@ from hmcmt2d_tpu_torch.sampler import adapt as A  # noqa: E402
 from hmcmt2d_tpu_torch.sampler import driver as D  # noqa: E402
 from hmcmt2d_tpu_torch.sampler import hmc as H  # noqa: E402
 from tests.test_e2e import tiny_setup  # noqa: E402
+from hmcmt2d_tpu_torch.sampler import graphed as G  # noqa: E402
 from tests.torch_parity import (SHARD_OPTS, chain_models, median_pool_rank,  # noqa: E402
-                                port_setup, problem_arrays, relerr, sharded_cases)
+                                no_host_round_trip, port_setup, problem_arrays, relerr,
+                                sharded_cases, tensors)
 
 EXACT = SolveConfig(torch.complex128, 0, "thomas")
 TOL = 1e-10
@@ -291,3 +299,107 @@ def test_dryrun_multichip_on_four_cpu_ranks():
     assert len(out) == 4 and all(o == out[0] for o in out)
     assert tuple(out[0]["mesh"]) == (2, 2) and out[0]["chains"] == 4
     assert np.isfinite(out[0]["misfit"]).all() and out[0]["dt"] > 0
+
+
+# -- the graphed sharded path ----------------------------------------------
+def _cases(got: dict, want: dict):
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_graphed_sharded_warmup_and_run_equal_eager(group):
+    """On the (2 x 2) group, a sharded warmup and an amortised run served
+    from emulated graphs (fresh eval, cube factor, stale eval; the
+    freq-group sum after each replay) equal the eager sharded ones bit for
+    bit."""
+    for rank in group:
+        graphed = rank["graphed"]
+        _cases(graphed["warmup"], rank["warmup"])
+        _cases(graphed["run"], rank["run"])
+        assert graphed["kinds"] == ["eval", "factor", "stale"]
+        for name in ("U", "misfit", "mnorm", "grad"):
+            np.testing.assert_array_equal(graphed[name], rank[name], err_msg=name)
+
+
+def test_graphed_sharded_value_and_grad_match_jax(tiny, group):
+    m = tiny["m"]
+    (U, (mis, mn, _)), g = jax.jit(jax_vg(tiny["jprob"], 1.0))(
+        jnp.asarray(m), jnp.asarray(m[::-1].copy()))
+    got = group[0]["graphed"]
+    for name, want in (("U", U), ("misfit", mis), ("mnorm", mn), ("grad", g)):
+        assert got[name].shape == np.shape(want), name
+        assert relerr(got[name], want) < TOL, name
+
+
+def test_graphed_sharded_release_empties_the_captures(group):
+    """``release()`` drops every rank's graphs and returns every rank's
+    capture summaries, each with its rank (a collective)."""
+    for rank in group:
+        assert rank["graphed"]["left"] == 0
+        assert [tuple(c) for c in rank["graphed"]["released"]] == [
+            (r, kind) for r in range(4) for kind in ("eval", "factor", "stale")]
+
+
+SHARDED_ENGINES = {"fused": SolveConfig(torch.complex64, 6, "fused"),
+                   "bcr_gj": SolveConfig(torch.complex64, 6, "bcr", "gj")}
+
+
+@pytest.mark.parametrize("engine", sorted(SHARDED_ENGINES))
+def test_sharded_local_work_makes_no_host_round_trip_after_its_first(engine):
+    """A frequency rank's local eval, cube factor and stale eval (the tiny
+    flagship's first two of four frequencies at prior_scale 1/2, fused and
+    bcr+gj through their plain versions), after a first call of each, read
+    nothing back to the host and copy nothing from it, and give what they
+    gave the first time: what a capture of each needs."""
+    prob, m0 = entry.flagship_problem(tiny=True, device="cpu", cfg=SHARDED_ENGINES[engine])
+    ss = ShardedSampler(prob, 1.0, _Mesh(1, 2))
+    assert ss.n_freq_dev == 2 and len(ss.freqs) == prob.fwd.data.n_freq // 2
+    m = torch.as_tensor(chain_models(m0, 2).astype(np.float32))
+
+    def calls():
+        fac = ss.factor_fn(m + 0.01)
+        return ss.local_vg(m, m), fac, ss.local_vg(m, m, fac)
+
+    first = calls()
+    with no_host_round_trip() as made:
+        again = calls()
+    assert made == []
+    for x, y in zip(first, again):
+        tx, ty = tensors(x), tensors(y)
+        assert len(tx) == len(ty) > 0 and all(torch.equal(a, b) for a, b in zip(tx, ty))
+    flat, cube, dtypes = first[0]
+    assert flat.dtype == torch.float64 and flat.shape == (2, 3 + len(m0))
+    assert dtypes[3] == m.dtype
+
+
+def test_sharded_sampler_takes_the_graphs_where_they_serve(monkeypatch):
+    """``graphed=None`` serves a CPU problem eagerly and takes the graphs
+    where they serve (a CUDA problem; here ``unservable`` says so): the
+    local eval is then a GraphedPotential over the rank's own functions,
+    and the amortised factor its factor graph; ``graphed=False`` stays
+    eager and ``amortize=False`` has no factor."""
+    prob, _ = entry.flagship_problem(tiny=True, device="cpu")
+    eager = ShardedSampler(prob, 1.0, _Mesh(1, 2))
+    assert not isinstance(eager.local_vg, G.GraphedPotential)
+    assert eager.local_vg == eager._local_vg and eager.factor_fn == eager._factor
+    monkeypatch.setattr(G, "unservable", lambda problem: None)
+    for graphed in (None, True):
+        ss = ShardedSampler(prob, 1.0, _Mesh(1, 2), graphed=graphed)
+        vg = ss.local_vg
+        assert isinstance(vg, G.GraphedPotential) and vg.captures == {}
+        assert vg.eval_fn == ss._local_vg and vg.factor_fn == ss._factor
+        assert ss.factor_fn == vg.factor
+    assert ShardedSampler(prob, 1.0, _Mesh(1, 2), amortize=False).factor_fn is None
+    still = ShardedSampler(prob, 1.0, _Mesh(1, 2), graphed=False)
+    assert not isinstance(still.local_vg, G.GraphedPotential)
+    assert isinstance(D.make_sampler(prob, 1.0, True).potential_vg, G.GraphedPotential)
+    assert not isinstance(D.make_sampler(prob, 1.0, True, graphed=False).potential_vg,
+                          G.GraphedPotential)
+
+
+def test_sharded_sampler_graphed_true_raises_off_the_card():
+    prob, _ = entry.flagship_problem(tiny=True, device="cpu")
+    with pytest.raises(ValueError, match="CUDA problem"):
+        ShardedSampler(prob, 1.0, _Mesh(1, 2), graphed=True)
+    with pytest.raises(ValueError, match="CUDA problem"):
+        D.make_sampler(prob, 1.0, True, graphed=True)

@@ -7,7 +7,10 @@ crosses between the frameworks only as numpy arrays.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
+import pytest
 import torch
 
 
@@ -132,6 +135,78 @@ def jax_problem_from_arrays(arrays: dict, cfg):
                           bg_flat=np.asarray(arrays["bg_flat"], float))
 
 
+# -- the graphed eval's CPU side: host reads refused, captures emulated ----
+# every Tensor method that copies a value to the host and waits on the device
+HOST_READS = ("item", "__bool__", "__int__", "__float__", "tolist", "numpy")
+
+
+@contextlib.contextmanager
+def no_host_round_trip():
+    """Make every host read of a tensor raise, and ``torch.linalg.inv``
+    (which reads its error code back from the device), and record each
+    ``torch.as_tensor`` / ``torch.tensor`` of data that is not a tensor (a
+    host-to-device copy on the card).  Yields the list of those calls."""
+    made = []
+
+    def refuse(name):
+        def read(self, *a, **k):
+            raise AssertionError(f"host round trip: Tensor.{name}")
+        return read
+
+    def inv(*a, **k):
+        raise AssertionError("host round trip: torch.linalg.inv reads its error code")
+
+    def recorded(fn):
+        def make(data, *a, **k):
+            if not isinstance(data, torch.Tensor):
+                made.append((fn.__name__, type(data).__name__))
+            return fn(data, *a, **k)
+        return make
+
+    mp = pytest.MonkeyPatch()
+    try:
+        for name in HOST_READS:
+            mp.setattr(torch.Tensor, name, refuse(name))
+        mp.setattr(torch, "as_tensor", recorded(torch.as_tensor))
+        mp.setattr(torch, "tensor", recorded(torch.tensor))
+        mp.setattr(torch.linalg, "inv", inv)
+        yield made
+    finally:
+        mp.undo()
+
+
+def tensors(x) -> list:
+    """The tensors of a (nested) tuple, a factorisation among them, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for part in x for t in tensors(part)]
+    return []
+
+
+class RerunGraph:
+    """A stand-in for a CUDA graph on the CPU: a replay reruns the captured
+    function on the static inputs and writes its results into the static
+    outputs, in place, as a graph's replay rewrites its buffers."""
+
+    def __init__(self, fn, inputs, out):
+        self.fn, self.inputs, self.out = fn, inputs, out
+
+    def replay(self):
+        for dst, src in zip(tensors(self.out), tensors(self.fn(*self.inputs))):
+            dst.copy_(src)
+
+
+def emulated_capture(self, kind, fn, inputs):
+    """``GraphedPotential._capture`` on the CPU: a :class:`RerunGraph` over
+    static copies of the inputs, no launches and no pool."""
+    from hmcmt2d_tpu_torch.sampler import graphed as G
+
+    static = tuple(x.clone() for x in inputs)
+    out = fn(*static)
+    return G.Capture(kind, RerunGraph(fn, static, out), static, out, {}, {}, 0.0, 0)
+
+
 def chain_models(m0: np.ndarray, n_chains: int, scale: float = 0.1,
                  seed: int = 0) -> np.ndarray:
     """(C, P) models around m0; chain 0 is m0 itself."""
@@ -167,8 +242,10 @@ def _result(res, *extra) -> dict:
 def sharded_cases(device, arrays, setup, m, cfgs, tmp):
     """One rank of the (2 chains x 2 freq) group of the sharded tests: the
     potential and gradient, a run, the warmup in one scan and in segments,
-    and run_inversion checkpointed and resumed and under the Gauss-Newton
-    schedule.  Every value returned is global (the same on every rank)."""
+    run_inversion checkpointed and resumed and under the Gauss-Newton
+    schedule, and the potential, warmup and run again from graphs emulated
+    on the CPU (:func:`emulated_capture`), then released.  Every value
+    returned is global (the same on every rank)."""
     torch.set_num_threads(1)
     from hmcmt2d_tpu_torch import convert
     from hmcmt2d_tpu_torch.io import HMCConfig
@@ -214,6 +291,25 @@ def sharded_cases(device, arrays, setup, m, cfgs, tmp):
     out["full"], out["resumed"] = _result(full.result), _result(resumed.result)
     gn = run(cfgs["gn"])
     out["gn"] = _result(gn.result, gn.n_warm)
+
+    from hmcmt2d_tpu_torch.sampler import graphed as G
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(G, "unservable", lambda problem: None)
+        mp.setattr(G.GraphedPotential, "_capture", emulated_capture)
+        gs = ShardedSampler(prob, 1.0, mesh, graphed=True)
+        (U, (mis, mn, _)), g = gs.potential_vg(mt[lo:lo + n_l], mt.flip(0)[lo:lo + n_l])
+        graphed = {"U": all_gather_cat(U, gs.chains),
+                   "misfit": all_gather_cat(mis, gs.chains),
+                   "mnorm": all_gather_cat(mn, gs.chains),
+                   "grad": all_gather_cat(g, gs.chains)}
+        res, _state, wmass, info = gs.warmup(opts, mt, mt, 6, 7)
+        graphed["warmup"] = _result(res, wmass.inv_m, info.dt)
+        graphed["run"] = _result(gs.run(opts, mass, mt, mt, 3, 5))
+        graphed["kinds"] = sorted(c.kind for c in gs.local_vg.captures.values())
+        graphed["released"] = sorted((c["rank"], c["kind"]) for c in gs.release())
+        graphed["left"] = len(gs.local_vg.captures)
+    out["graphed"] = graphed
     return _numpy_tree(out)
 
 
@@ -268,3 +364,4 @@ def single_mode_freq_rank(device, arrays, m, method: str = "thomas") -> dict:
     mt = torch.as_tensor(m)
     (U, (mis, mn, _)), g = ss.potential_vg(mt, mt.flip(0))
     return _numpy_tree({"U": U, "misfit": mis, "mnorm": mn, "grad": g})
+
