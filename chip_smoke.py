@@ -119,6 +119,20 @@ Phases, each of which exits non-zero on failure:
    from one seed, through ``BatchedSampler``) graphed against eager on
    bcr+lu, thomas+lu and bcr+gj: the same accepts and leapfrog steps, dt
    and models within 1e-5, and the seconds of each;
+14. the Gauss-Newton build (``gauss_newton_mass`` at full width: 1,804
+   rows of J in 15 slabs of 128) with its Jacobian from the CUDA graph of
+   the slab pullback (``models/jacobian.py``, the default on the card)
+   against the eager build, under thomas + LU (the bench's), bcr + LU and
+   bcr + gj (the hybrid run's) and fused (the sweeps in the graph), at the
+   start model and a second one in turn, in two rounds (the whole GN mass,
+   then J alone): J bit for bit where two eager builds agree bit for bit,
+   else within their spread (printed); the same launches, and each kernel
+   of the path launched; each build's seconds of J and of the host's
+   J'W^2J and Cholesky; capture seconds, pool bytes, the ms of a replayed
+   and of an eager slab; the graph released and its memory freed.
+   Phases 7, 10b, 10c, 11 and
+   ``--warmup-engines`` build J from the graph too (10b prints the eager
+   build's peak beside the graphed one's);
 11. the port's bench (``hmcmt2d_tpu_torch.bench``) at full width, cut in
    length: ``measure_ess`` at C = 8 with warmup 8, the Gauss-Newton mass,
    re-adaptation 8 and a window of 16 samples, the chain sweep at C = 12
@@ -846,6 +860,7 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
     rhat = D.split_rhat(models[n_warm:])
     switch = "hybrid: warmup engine bcr -> main engine fused" in log1
     released = log1.count("released the warmup engine's")
+    gn_released = log1.count(GN_LOG_14)
     summary = {
         "cli_run": "hmcmt2d-torch run (flagship, full width, from files)",
         "card": smi, "chains": n_chains, "rc": [rc1, rc2], "switch_logged": switch,
@@ -862,7 +877,7 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
         "fused_evals": evals, "launches": [launches1, launches2],
         "eval": "graphed" if caps1 and caps2 else "eager",
         "graph_captures": [capture_summary(caps1), capture_summary(caps2)],
-        "warmup_graphs_released": released,
+        "warmup_graphs_released": released, "gn_graphs_released": gn_released,
         "leapfrog_steps": lf[:, 0].tolist()}
     say(summary)
     if rc1 != 0 or rc2 != 0:
@@ -876,6 +891,8 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
     if [capture_kinds(caps1), capture_kinds(caps2)] != want_caps or released != 3:
         fail(f"the two runs captured {[capture_kinds(caps1), capture_kinds(caps2)]}, not "
              f"{want_caps}, and released {released} warmup graphs at the switch, not 3")
+    if gn_released != 1:
+        fail(f"run 1 logged {gn_released} Gauss-Newton Jacobian graphs released, not 1")
     if missing:
         fail(f"missing output files: {missing}")
     if not (np.isfinite(stats).all() and np.isfinite(models).all()):
@@ -1761,12 +1778,12 @@ def output_finite(d: Path, names) -> list[str]:
     return [n for n in names if pat.search((d / n).read_text())]
 
 
-def gn_peak_bytes(torch, problem, m, method) -> int:
+def gn_peak_bytes(torch, problem, m, method, graphed=None) -> int:
     """The peak device memory of ``full_jacobian_chunked`` at model m (P,)
-    under ``method`` (complex64, refine 3: the hybrid run's warmup engine)
-    over what was allocated when it started: the GN mass's Jacobian, one
-    forward pass of 128 rows, each backward pass 128 right-hand sides
-    sharing one factor."""
+    under ``method`` (complex64, refine 3: the hybrid run's warmup engine),
+    from its graph (the default) or eager, over what was allocated when it
+    started: the GN mass's Jacobian, one forward pass of 128 rows, each
+    backward pass 128 right-hand sides sharing one factor."""
     from hmcmt2d_tpu_torch.models import jacobian as JJ
     from hmcmt2d_tpu_torch.models.forward import SolveConfig
 
@@ -1774,7 +1791,7 @@ def gn_peak_bytes(torch, problem, m, method) -> int:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    JJ.full_jacobian_chunked(prob, m, chunk=GN_ROWS)
+    JJ.full_jacobian_chunked(prob, m, chunk=GN_ROWS, graphed=graphed)
     torch.cuda.synchronize()
     return torch.cuda.max_memory_allocated() - base
 
@@ -1868,6 +1885,7 @@ def run_summary(run: dict, phase7_s) -> dict:
     return {"rc": run["rc"], "wall_s": run["wall"], "phase_s": phase_seconds(run["log"]),
             "phase7_phase_s": phase7_s, "fused_evals": run["evals"],
             "launches": run["launches"], "gn_build": gn,
+            "gn_graphs_released": run["log"].count(GN_LOG_14),
             "gn_peak_over_start_gb": (gn["peak_bytes"] - gn["base_bytes"]) / 1e9
             if "peak_bytes" in gn else None,
             "main_accept_rate": run["acc"], "leapfrog_steps": run["lf"].tolist()}
@@ -1897,6 +1915,8 @@ def check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s):
     m0_t = torch.as_tensor(m0, dtype=torch.float32, device=problem.device)
     FF.reset_launches()
     gn_peak = {meth: gn_peak_bytes(torch, problem, m0_t, meth) for meth in ("thomas", "bcr")}
+    gn_peak_eager = {meth: gn_peak_bytes(torch, problem, m0_t, meth, graphed=False)
+                     for meth in ("thomas", "bcr")}
     solve = {meth: gn_solve_bytes(torch, problem, m0_t, meth)
              for meth in ("thomas", "bcr", "thomas_blocked")}
     gn_launches = FF.launches()
@@ -1904,6 +1924,7 @@ def check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s):
               for k in ("bcr", "thomas_blocked")}
     say({"phase": "10b", "gn_build_at_start_model": True, "card": smi,
          "gn_peak_over_start_gb": {k: v / 1e9 for k, v in gn_peak.items()},
+         "gn_peak_over_start_gb_eager": {k: v / 1e9 for k, v in gn_peak_eager.items()},
          "gn_margin_gb": GN_MARGIN_BYTES / 1e9,
          "solve_128_rhs": {k: {kk: vv / 1e9 for kk, vv in v.items()} for k, v in solve.items()},
          "solve_limit_gb": {k: v / 1e9 for k, v in limits.items()}, "launches": gn_launches})
@@ -1928,6 +1949,8 @@ def check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s):
     check_outputs("10b", run)
     if "peak_bytes" not in gn or gn["launches_after"] != NO_LAUNCHES:
         fail(f"10b: the GN build did not run, or warmup and GN launched fused kernels: {gn}")
+    if run["log"].count(GN_LOG_14) != 1:
+        fail("10b: the run's GN build did not log its Jacobian graph released")
     if run["launches"] != want:
         fail(f"10b: launches {run['launches']} != {want} for {evals} fused evals")
 
@@ -1954,8 +1977,8 @@ def check_gj_cli(torch, problem, m0, smi, phase7_s) -> dict:
         fail(f"10c: rc {run['rc']}, engine switch logged {switch}, inv=gj logged "
              f"{'inv=gj' in run['log']}")
     check_outputs("10c", run)
-    if "peak_bytes" not in gn:
-        fail("10c: the GN build did not run")
+    if "peak_bytes" not in gn or run["log"].count(GN_LOG_14) != 1:
+        fail("10c: the GN build did not run, or did not log its Jacobian graph released")
     before, after = (gn[k].get("gj_inverse", 0) for k in ("launches_before", "launches_after"))
     fused = {"schur_factor": evals, "bt_sweep_fwd": 14 * evals, "bt_sweep_bwd": 14 * evals}
     if (fused_only(gn["launches_after"]) != NO_LAUNCHES or not 0 < before < after
@@ -2168,6 +2191,214 @@ def check_graphed_warmups(torch, problem, m, m_ref, smi) -> None:
         fail("13b: graphed against eager: " + "; ".join(bad))
 
 
+# phase 14: the GN build's Jacobian from its graph against the eager one;
+# (method, inv_method, refine): the bench's (thomas + LU, refine 6 as its
+# main engine), the hybrid run's defaults (bcr with LU or gj, refine 3 as
+# the CLI's warmup engine) and fused (--warmup-solver same under --solver
+# fused): the sweeps in the slab graph
+GN_ENGINES_14 = (("thomas", "lu", 6), ("bcr", "lu", 3), ("bcr", "gj", 3), ("fused", "lu", 6))
+# rounds over both models, graphed and eager in turn: the first builds the
+# whole GN mass, the second J alone (the host half is the same either way)
+HOST_ROUNDS_14 = (True, False)
+# a released graph leaves no tensor allocated and no memory cached (the
+# build empties the cache) beyond this share of its pool (2.2-2.6 GB on
+# the flagship)
+RELEASE_SLACK_14 = 0.1
+GN_LOG_14 = "released the GN build's jacobian graph"
+
+
+@contextlib.contextmanager
+def recorded_gn_builds():
+    """Yields the list of the Gauss-Newton Jacobians built inside the block
+    (``full_jacobian_chunked``): for each build the summaries of its
+    captures, none for an eager build."""
+    from hmcmt2d_tpu_torch.models import jacobian as JJ
+
+    builds, build = [], JJ.full_jacobian_chunked
+
+    def recording(*args, captures=None, **kw):
+        builds.append([])
+        out = build(*args, captures=builds[-1], **kw)
+        if captures is not None:
+            captures.extend(builds[-1])
+        return out
+
+    JJ.full_jacobian_chunked = recording
+    try:
+        yield builds
+    finally:
+        JJ.full_jacobian_chunked = build
+
+
+def gn_build(torch, problem, prob, m, graphed: bool, host: bool) -> dict:
+    """One Gauss-Newton build under ``prob``'s engine at m (P,), measured:
+    with ``host``, ``gauss_newton_mass(problem, m, 1.0, jac_problem=prob,
+    graphed=)``, else its Jacobian alone.  The seconds of J
+    (``full_jacobian_chunked``, up to J on the host) and of the host's
+    J'W^2J and Cholesky, the launches, the captures, the CUDA-event ms of
+    each slab (an eager ``SlabPullback`` call after the first, which makes
+    the forward pass; a replay), what the build left (graph objects alive,
+    tensors allocated, memory cached but free beyond what was cached before
+    it), the GN mass's log and J."""
+    import weakref
+
+    from hmcmt2d_tpu_torch.models import jacobian as JJ
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.sampler import driver as D
+    from hmcmt2d_tpu_torch.sampler import graphed as G
+
+    out, events, graphs, lines, caps = {}, [], [], [], []
+    build, call, replay, capture = (JJ.full_jacobian_chunked, JJ.SlabPullback.__call__,
+                                    G.replay, G.capture)
+
+    def timed_slab(fn):
+        def run(*args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res = fn(*args)
+            ev[1].record()
+            events.append(ev)
+            return res
+        return run
+
+    def captured(*args, **kw):
+        cap = capture(*args, **kw)
+        graphs.append(weakref.ref(cap.graph))
+        return cap
+
+    def cached():
+        return torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+
+    def measured(*args, **kw):
+        torch.cuda.synchronize()
+        allocated, cached0 = torch.cuda.memory_allocated(), cached()
+        t0 = time.perf_counter()
+        J = build(*args, **kw)
+        out.update(j_s=time.perf_counter() - t0, J=J)
+        caps.extend(kw.get("captures") or [])
+        torch.cuda.synchronize()
+        # a live graph's pool would stay cached here: the build empties
+        # the cache after freeing it
+        out.update(allocated_left=torch.cuda.memory_allocated() - allocated,
+                   cached_gain=cached() - cached0)
+        return J
+
+    JJ.full_jacobian_chunked, G.capture = measured, captured
+    if graphed:
+        G.replay = timed_slab(replay)
+    else:
+        JJ.SlabPullback.__call__ = timed_slab(call)
+    try:
+        torch.cuda.synchronize()
+        FF.reset_launches()
+        t0 = time.perf_counter()
+        if host:
+            D.gauss_newton_mass(problem, m, 1.0, jac_problem=prob, graphed=graphed,
+                                log=lines.append)
+        else:
+            JJ.full_jacobian_chunked(prob, m, chunk=GN_ROWS, graphed=graphed, captures=[])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        JJ.full_jacobian_chunked, JJ.SlabPullback.__call__ = build, call
+        G.replay, G.capture = replay, capture
+    slab_ms = [a.elapsed_time(b) for a, b in events[0 if graphed else 1:]]
+    return {"J": out["J"], "j_s": out["j_s"], "host_s": total - out["j_s"] if host else None,
+            "launches": {k: n for k, n in FF.launches().items() if n},
+            "slab_ms": float(np.median(slab_ms)), "log": lines, "captures": caps,
+            "graphs_left": sum(g() is not None for g in graphs),
+            "allocated_left": out["allocated_left"], "cached_gain": out["cached_gain"]}
+
+
+def released_14(r: dict, host: bool) -> bool:
+    """A graphed build freed its graph: no graph object alive, no tensor
+    left allocated and no memory cached beyond RELEASE_SLACK_14 of its
+    pool, and with the host half its line in the GN mass's log."""
+    if r["graphs_left"] or len(r["captures"]) != 1:
+        return False
+    slack = RELEASE_SLACK_14 * r["captures"][0]["pool_bytes"]
+    logged = len(r["log"]) == 1 and r["log"][0].startswith(GN_LOG_14)
+    return (r["allocated_left"] <= slack and r["cached_gain"] <= slack
+            and (logged or not host))
+
+
+def check_graphed_gn(torch, problem, m0, smi) -> dict:
+    """Phase 14: the Gauss-Newton build at the full flagship (1,804 rows of
+    J, 15 slabs of 128) under each of GN_ENGINES_14, its J from the slab
+    pullback's CUDA graph against the eager build, at the start model and
+    a second one (numpy seed 2) in turn, in HOST_ROUNDS_14 (the whole
+    ``gauss_newton_mass``, J and the host half) and then J alone: J bit
+    for bit where two eager builds agree bit for bit, else within their
+    spread; the same launches; each build's seconds of J and of the host
+    half; capture seconds, pool bytes, ms of a replayed and of an eager
+    slab; the graph released.  Returns the launches of one build on each
+    engine."""
+    from hmcmt2d_tpu_torch.models.forward import SolveConfig
+
+    m0_t = torch.as_tensor(m0, dtype=torch.float32, device=problem.device)
+    rng = np.random.default_rng(2)
+    m2 = m0_t + 0.01 * torch.as_tensor(rng.standard_normal(m0_t.shape), dtype=m0_t.dtype,
+                                       device=m0_t.device)
+    models = (("start", m0_t), ("seed2", m2))
+    launches, bad = {}, []
+    for method, inv, refine in GN_ENGINES_14:
+        label = f"{method}+{inv}"
+        t_engine = time.perf_counter()
+        prob = engine_problem(problem, SolveConfig(torch.complex64, refine, method, inv))
+        runs = {k: {name: [] for name, _ in models} for k in ("graphed", "eager")}
+        for host in HOST_ROUNDS_14:
+            for name, mm in models:
+                for kind in runs:
+                    runs[kind][name].append(gn_build(torch, problem, prob, mm,
+                                                     kind == "graphed", host))
+        compare = {}
+        for name, _ in models:
+            e0, e1 = (r["J"] for r in runs["eager"][name][:2])
+            spread = float(np.abs(e0 - e1).max())
+            err = max(float(np.abs(r["J"] - e0).max()) for r in runs["graphed"][name])
+            compare[name] = {"graphed_vs_eager": err, "eager_spread": spread,
+                             "max_abs_J": float(np.abs(e0).max())}
+            if err > spread:
+                bad.append(f"{label} {name}: J {err:.3e} from eager, against an eager "
+                           f"spread {spread:.3e}")
+        every = [r for kind in runs.values() for rs in kind.values() for r in rs]
+        want = runs["eager"]["start"][0]["launches"]
+        if any(r["launches"] != want for r in every):
+            bad.append(f"{label}: launches {[r['launches'] for r in every]}, not all {want}")
+        released = [released_14(r, host) for rs in runs["graphed"].values()
+                    for r, host in zip(rs, HOST_ROUNDS_14)]
+        left = [{k: r[k] for k in ("log", "graphs_left", "allocated_left", "cached_gain")}
+                for rs in runs["graphed"].values() for r in rs]
+        if not all(released):
+            bad.append(f"{label}: a graph was not released: {left}")
+        if any(r["log"] for rs in runs["eager"].values() for r in rs):
+            bad.append(f"{label}: an eager build logged a graph")
+        launches[label] = want
+        caps = [c for rs in runs["graphed"].values() for r in rs for c in r["captures"]]
+
+        def col(kind, key):
+            return {name: [r[key] for r in rs] for name, rs in runs[kind].items()}
+
+        slab = {k: float(np.median([r["slab_ms"] for rs in runs[k].values() for r in rs]))
+                for k in runs}
+        say({"phase": 14, "engine": method, "inv": inv, "dtype": "complex64",
+             "refine": refine, "card": smi, "rows_of_J": int(e0.shape[0]),
+             "slabs": -(-int(e0.shape[0]) // GN_ROWS), "with_host_half": HOST_ROUNDS_14,
+             "j_s": {k: col(k, "j_s") for k in runs},
+             "host_s": {k: col(k, "host_s") for k in runs},
+             "slab_ms_median": slab,
+             "eager_over_graphed_slab": slab["eager"] / slab["graphed"],
+             "capture_s": [c["capture_s"] for c in caps],
+             "pool_bytes": [c["pool_bytes"] for c in caps],
+             "replays": [c["replays"] for c in caps], "released": all(released),
+             "left_after_graphed": left, "launches": want, "compare": compare,
+             "seconds": time.perf_counter() - t_engine})
+        del runs, every, prob
+    if bad:
+        fail("14: " + "; ".join(bad))
+    return launches
+
+
 # ``--warmup-engines [N]``: the hybrid run's warmup engines at the production
 # warmup length, with the round-5 production keys
 # (runs/dprism3d_r5/startupfile) in place of phase 7's cuts
@@ -2230,10 +2461,12 @@ def compare_warmup_engines(torch, problem, m0, smi, n_burn: int,
             secs = phase_seconds(log)
             released = re.findall(r"released the warmup engine's (\w+) graph \(C=\d+\): "
                                   r"pool (\d+) bytes, captured in ([\d.]+) s", log)
+            gn_released = log.count(GN_LOG_14)
             if (rc != 0 or not done or f"hybrid: warmup engine {engine}" not in log
-                    or len(released) != (3 if kind == "graphed" else 0)):
+                    or len(released) != (3 if kind == "graphed" else 0)
+                    or gn_released != (kind == "graphed")):
                 fail(f"warmup engines: the {kind} {engine} run gave rc {rc}, warmup line "
-                     f"{bool(done)}, released graphs {released}")
+                     f"{bool(done)}, released graphs {released}, GN graphs {gn_released}")
             n, dt, acc, mis0, mis1 = done.groups()
             rows[engine, kind] = {
                 "phase": "warmup_engines", "warmup_solver": engine, "eval": kind,
@@ -2242,7 +2475,8 @@ def compare_warmup_engines(torch, problem, m0, smi, n_burn: int,
                 "warmup_accept": float(acc), "misfit_start": float(mis0),
                 "misfit_end": float(mis1), "gn_build_s": secs["dense_mass_build"],
                 "phase_s": secs, "wall_s": wall, "launches": launches,
-                "graphs_released": released, "segments_misfit_dt": segs}
+                "graphs_released": released, "gn_graphs_released": gn_released,
+                "segments_misfit_dt": segs}
             say(rows[engine, kind])
     t, b = rows["thomas", "graphed"], rows["bcr", "graphed"]
     summary = {"phase": "warmup_engines", "card": smi,
@@ -2318,18 +2552,28 @@ def check_bench(torch, smi, dev) -> dict:
         return windows[-1]
 
     bench._measure = recorded
+    logged, bench_log = [], bench.log
+
+    def log(msg):
+        logged.append(msg)
+        bench_log(msg)
+
+    bench.log = log
     try:
         torch.cuda.synchronize()
         FF.reset_launches()
         t0 = time.perf_counter()
-        stats = bench.measure_ess(factory, C, **BENCH_CUT)
+        with recorded_gn_builds() as gn_builds:
+            stats = bench.measure_ess(factory, C, **BENCH_CUT)
         torch.cuda.synchronize()
         ess_s = time.perf_counter() - t0
         counts = FF.launches()
     finally:
-        bench._measure = measure
+        bench._measure, bench.log = measure, bench_log
     if len(windows) != 1:
         fail(f"bench: measure_ess timed {len(windows)} windows, not 1")
+    if [[c["kind"] for c in b] for b in gn_builds] != [["jacobian"]]:
+        fail(f"bench: the GN builds captured {gn_builds}, not one Jacobian graph")
     sweep = {str(C): stats["samples_per_sec"]}
     for c, n in BENCH_SWEEP:
         windows.append(bench._measure(factory, c, n))
@@ -2346,6 +2590,8 @@ def check_bench(torch, smi, dev) -> dict:
     summary = {"phase": 11, "card": smi, "cut": BENCH_CUT,
                "sweep": [list(cn) for cn in BENCH_SWEEP],
                "measure_ess_s": ess_s, "cpu_baselines_s": cpu_s,
+               "gn_build_captures": gn_builds,
+               "gn_log": [x for x in logged if "Gauss-Newton" in x or "GN build" in x],
                "measure_ess_launches": counts,
                "windows": {t: window_launch_check(t, w, i > 0)
                            for i, (t, w) in enumerate(zip(tags, windows))},
@@ -2566,6 +2812,17 @@ def main() -> None:
     check_graphed_warmups(torch, problem, m, m_ref, smi)
     say(f"[phase 13] {time.perf_counter() - t13:.1f} s")
 
+    # phase 14: the GN build's Jacobian from its slab graph, against eager;
+    # its path's kernels: the fused engine's three, gj_inverse under bcr+gj
+    t14 = time.perf_counter()
+    gn_launches = check_graphed_gn(torch, problem, m0, smi)
+    say(f"[phase 14] {time.perf_counter() - t14:.1f} s")
+    gn_path = {k: gn_launches["fused+lu"].get(k, 0)
+               for k in ("schur_factor", "bt_sweep_fwd", "bt_sweep_bwd")}
+    gn_path["gj_inverse"] = gn_launches["bcr+gj"].get("gj_inverse", 0)
+    if not all(gn_path.values()):
+        fail(f"14: a kernel of the GN build's path was not launched: {gn_path}")
+
     # phase 11: the bench's pipeline at cut lengths
     bench_launches = check_bench(torch, smi, dev)
 
@@ -2606,6 +2863,7 @@ def main() -> None:
                 launches_bench=bench_launches.get(k, 0),
                 launches_per_factor_and_eval=gj_engine_launches,
                 launches_per_graphed_factor_replay=gj_graphed_launches,
+                launches_gn_build_bcr_gj=gn_path[k],
                 variants={v: {kk: r2[kk] for kk in ("batch", "n", "dtype", "abs", "rel",
                                                     "kernel_ms", "plain_ms", "bound_ms",
                                                     "share_of_bound", "library_ms")}
@@ -2618,7 +2876,8 @@ def main() -> None:
                                                     for ph, counts_ in sharded_launches.items()},
                          launches_single_mode={n: c[k] for n, c in single_launches.items()},
                          launches_refresh_extend=tool_launches[k],
-                         launches_bench=bench_launches[k])
+                         launches_bench=bench_launches[k],
+                         launches_gn_build_fused=gn_path[k])
         kernels.append(entry)
     say({"kernels": kernels})
     say(smi_line())

@@ -150,8 +150,9 @@ def _build(problem_factory, n_chains, seg=8, n_warm=0, gn_mass=False, n_readapt=
             jac_cfg = dataclasses.replace(problem.fwd.cfg, solver_method="thomas")
             jac_problem = dataclasses.replace(
                 problem, fwd=make_forward(problem.mesh, problem.fwd.data, jac_cfg))
+            # J from its slab graph on the card, as the evals (graphed=None)
             mass = gauss_newton_mass(problem, carry.state.m.mean(dim=0), 1.0,
-                                     jac_problem=jac_problem, chunk=128)
+                                     jac_problem=jac_problem, chunk=128, log=log)
             _sync(dev)
             log(f"Gauss-Newton mass: {time.perf_counter() - t0:.3f} s")
             t0 = time.perf_counter()

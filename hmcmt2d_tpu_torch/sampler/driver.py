@@ -171,17 +171,27 @@ def make_mass(problem: InverseProblem, cfg: HMCConfig,
 
 def gauss_newton_mass(problem: InverseProblem, m_repr: torch.Tensor, reg: float,
                       jac_problem: InverseProblem | None = None,
-                      chunk: int = 128, jitter: float = 1e-6) -> H.MassMatrix:
+                      chunk: int = 128, jitter: float = 1e-6,
+                      graphed: bool | None = None, log=None) -> H.MassMatrix:
     """Dense HMC mass M = J'W^2J + reg*Wm + jitter*mu*I, the Gauss-Newton
     approximation of the posterior precision at ``m_repr`` (P,), in
     ``m_repr``'s dtype on the problem's device.
 
     J comes from one factorisation and ``chunk``-row multi-right-hand-side
-    adjoint solves (models/jacobian.full_jacobian_chunked); M and its
-    Cholesky are float64 on the host.  ``jac_problem`` evaluates J under
-    another engine (the hybrid run's exact warmup engine)."""
+    adjoint solves (models/jacobian.full_jacobian_chunked), served from a
+    CUDA graph as ``graphed`` says (None: on the card); M and its Cholesky
+    are float64 on the host.  ``jac_problem`` evaluates J under another
+    engine (the hybrid run's exact warmup engine).  ``log`` (a callable of
+    one string) gets a line for the Jacobian's graph, freed before M is
+    built."""
     pj = jac_problem if jac_problem is not None else problem
-    J = JJ.full_jacobian_chunked(pj, m_repr, chunk=chunk)
+    caps = []
+    J = JJ.full_jacobian_chunked(pj, m_repr, chunk=chunk, graphed=graphed, captures=caps)
+    for cap in caps:
+        if log is not None:
+            log(f"released the GN build's {cap['kind']} graph ({cap['slabs']} slabs "
+                f"of {cap['rows']} rows, {cap['replays']} replayed): pool "
+                f"{cap['pool_bytes']} bytes, captured in {cap['capture_s']:.3f} s")
     w = np.asarray(problem.weights, np.float64)
     if np.iscomplexobj(problem.obs):
         w = np.concatenate([w, w])      # re/im rows share the datum weight
@@ -261,7 +271,8 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
                   verbose: bool = False,
                   progress_every: int = 0,
                   warmup_solve_cfg: SolveConfig | None = None,
-                  device=None, device_mesh=None) -> InversionRun:
+                  device=None, device_mesh=None,
+                  graphed: bool | None = None) -> InversionRun:
     """End-to-end inversion on ``device`` (None: the GPU, and raises
     without one); ``solve_cfg`` None is the device's default engine.
 
@@ -285,6 +296,9 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
     the fused kernels) before the dense-mass phase, starting fresh there
     at the warmed-up models.  The Gauss-Newton Jacobian is taken under the
     warmup engine.
+
+    ``graphed`` (as in :func:`make_potential_vg`; None: CUDA graphs on the
+    card) serves both engines' evals and the Gauss-Newton Jacobian.
     """
     n_chains = n_chains or cfg.n_chains
     seed = cfg.seed if seed is None else seed
@@ -301,7 +315,7 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
     # package's rule (its fused factor is cheap next to the 10 extra
     # refinement solves of a stale one); on the card that is not measured yet
     amortize = cfg.amortize and problem.fwd.cfg.solver_method != "fused"
-    eng = make_sampler(problem, cfg.reg_param, amortize, device_mesh)
+    eng = make_sampler(problem, cfg.reg_param, amortize, device_mesh, graphed)
 
     hybrid = (warmup_solve_cfg is not None and cfg.adapt and not resume
               and warmup_solve_cfg != problem.fwd.cfg)
@@ -309,7 +323,7 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
         problem_w = dataclasses.replace(
             problem, fwd=dataclasses.replace(problem.fwd, cfg=warmup_solve_cfg))
         amortize_w = cfg.amortize and warmup_solve_cfg.solver_method != "fused"
-        eng_w = make_sampler(problem_w, cfg.reg_param, amortize_w, device_mesh)
+        eng_w = make_sampler(problem_w, cfg.reg_param, amortize_w, device_mesh, graphed)
     else:
         problem_w, eng_w = problem, eng
     path_kind = "single" if device_mesh is None else "sharded"
@@ -401,7 +415,8 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
                 m_repr = (m_start if state is None else state.m).mean(dim=0)
                 if mkind == "gn":
                     mass = eng.shared_mass(lambda: gauss_newton_mass(
-                        problem, m_repr, cfg.reg_param, jac_problem=problem_w))
+                        problem, m_repr, cfg.reg_param, jac_problem=problem_w,
+                        graphed=graphed, log=log))
                 else:
                     mass = eng.shared_mass(lambda: H.dense_mass(
                         problem.wm_dense() + 1e-8 * np.eye(problem.n_param), rdt, dev))

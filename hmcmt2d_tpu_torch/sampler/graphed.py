@@ -17,7 +17,9 @@ the forward factor, the forward solve and the adjoint solve of
 ``torch.cuda.CUDAGraph`` for each shape and dtype of (m, m_ref) and
 replayed in every later call.  :class:`GraphedPotential` captures any
 such pair of functions: the problem's own by default, a sharded rank's
-when it passes them (``eval_fn``, ``factor_fn``).
+when it passes them (``eval_fn``, ``factor_fn``).  The Gauss-Newton
+build's slab pullback (``models/jacobian.py``) takes the same recipe
+(:func:`capture`, :func:`replay`) for one graph a build.
 
 Trajectory amortisation (``sampler/hmc.py`` ``_leapfrog``: a factor at the
 trajectory's start and every ``refactor_every`` steps, the steps between
@@ -62,6 +64,7 @@ and kept in its :class:`Capture`.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import NamedTuple
 
@@ -70,6 +73,7 @@ import torch
 from ..ops import fused_factor as FF
 
 WARMUP_CALLS = 3   # eager calls on the side stream before a capture
+_SIDE_STREAMS: dict[int, torch.cuda.Stream] = {}
 
 
 def unservable(problem) -> str | None:
@@ -84,7 +88,8 @@ class Capture(NamedTuple):
     """One captured call: the graph, its static inputs and outputs, and
     what its capture cost."""
 
-    kind: str                       # "eval" (fresh factor), "factor" or "stale"
+    kind: str                       # "eval" (fresh factor), "factor", "stale"
+    #                                 or "jacobian" (models/jacobian.py)
     graph: torch.cuda.CUDAGraph
     inputs: tuple                   # static (m,) or (m, m_ref), copied into
     out: object                     # static outputs, rewritten by each replay
@@ -94,7 +99,8 @@ class Capture(NamedTuple):
     pool_bytes: int                 # device memory the graph's pool reserved
 
     def summary(self) -> dict:
-        return {"kind": self.kind, "chains": self.inputs[0].shape[0],
+        x = self.inputs[0]        # (C, P) models, or a 0-d slab start
+        return {"kind": self.kind, "chains": x.shape[0] if x.dim() else None,
                 "capture_s": self.seconds, "pool_bytes": self.pool_bytes,
                 "launches_per_replay": self.launches}
 
@@ -111,6 +117,85 @@ def _clone(out):
     if isinstance(out, tuple):
         return tuple(_clone(x) for x in out)
     return out
+
+
+def _load(static: tuple, inputs: tuple) -> None:
+    with torch.no_grad():
+        for s, x in zip(static, inputs):
+            s.copy_(x)
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    """The one side stream of ``device`` that every capture takes: PyTorch
+    keeps cuBLAS workspaces for each stream that runs a product, so a new
+    stream a capture would keep another set allocated each time."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = torch.cuda.Stream(index)
+    return _SIDE_STREAMS[index]
+
+
+def capture(kind: str, fn, inputs: tuple, device, warmups=None) -> Capture:
+    """``fn``'s call on static copies of ``inputs``, captured as a CUDA
+    graph by PyTorch's recipe for whole-network capture:
+    :data:`WARMUP_CALLS` eager calls on a side stream, then the capture on
+    that stream into the graph's own memory pool.
+
+    ``warmups`` holds one tuple of inputs for each warm-up call, loaded
+    into the static inputs before it (by default ``inputs`` itself,
+    :data:`WARMUP_CALLS` times), so that the warm-ups can do a caller's
+    work; the capture records the call on ``inputs``.  The warm-ups' and
+    the capture's launches are taken back out of the counts and kept in
+    the :class:`Capture`.  Autograd runs each backward op on the stream its
+    forward op ran on, so a function that captures only a backward pass
+    makes its forward in its first warm-up call, on the side stream."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    static = tuple(torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
+                   for x in inputs)
+    side = _side_stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    before = FF.launches()
+    with torch.cuda.stream(side):
+        for args in warmups or (inputs,) * WARMUP_CALLS:
+            _load(static, args)
+            fn(*static)
+        _load(static, inputs)
+    torch.cuda.current_stream(device).wait_stream(side)
+    warmed = FF.launches()
+    graph = torch.cuda.CUDAGraph()
+    # no garbage collection while recording: a graph that the collector
+    # frees (one held in a reference cycle, as every GraphedPotential is)
+    # destroys its executable, which a capture does not permit
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        # the graph's pool is new and takes only fresh segments, so what
+        # the capture reserves is the pool's size
+        with torch.cuda.graph(graph, stream=side):
+            reserved = torch.cuda.memory_reserved(device)
+            out = fn(*static)
+    finally:
+        if collecting:
+            gc.enable()
+    pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    after = FF.launches()
+    FF.add_launches(FF.launch_delta(after, before))
+    torch.cuda.synchronize(device)
+    return Capture(kind, graph, static, out, FF.launch_delta(warmed, after),
+                   FF.launch_delta(before, warmed), time.perf_counter() - t0,
+                   pool_bytes)
+
+
+def replay(cap: Capture, inputs: tuple):
+    """Load ``inputs`` into the capture's static inputs, replay its graph
+    and count its launches; returns its static outputs."""
+    _load(cap.inputs, inputs)
+    cap.graph.replay()
+    FF.add_launches(cap.launches)
+    return cap.out
 
 
 class GraphedPotential:
@@ -141,32 +226,7 @@ class GraphedPotential:
         return self.problem.factor_state(m)
 
     def _capture(self, kind: str, fn, inputs: tuple) -> Capture:
-        dev = self.problem.device
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        static = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
-                       for x in inputs)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        before = FF.launches()
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_CALLS):
-                fn(*static)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        warmed = FF.launches()
-        graph = torch.cuda.CUDAGraph()
-        # the graph's pool is new and takes only fresh segments, so what
-        # the capture reserves is the pool's size
-        with torch.cuda.graph(graph, stream=side):
-            reserved = torch.cuda.memory_reserved(dev)
-            out = fn(*static)
-        pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        after = FF.launches()
-        FF.add_launches(FF.launch_delta(after, before))
-        torch.cuda.synchronize(dev)
-        return Capture(kind, graph, static, out, FF.launch_delta(warmed, after),
-                       FF.launch_delta(before, warmed), time.perf_counter() - t0,
-                       pool_bytes)
+        return capture(kind, fn, inputs, self.problem.device)
 
     def _replay(self, key: tuple, kind: str, fn, inputs: tuple):
         dev = self.problem.device
@@ -176,12 +236,7 @@ class GraphedPotential:
         cap = self.captures.get(key)
         if cap is None:
             cap = self.captures[key] = self._capture(kind, fn, inputs)
-        with torch.no_grad():
-            for s, x in zip(cap.inputs, inputs):
-                s.copy_(x)
-        cap.graph.replay()
-        FF.add_launches(cap.launches)
-        return cap.out
+        return replay(cap, inputs)
 
     def factor(self, m: torch.Tensor):
         """``factor_fn(m)`` from the factor graph: the graph's static

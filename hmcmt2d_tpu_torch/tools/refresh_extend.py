@@ -83,7 +83,8 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     mass = gauss_newton_mass(problem, state.m.mean(dim=0), cfg.reg_param,
-                             jac_problem=problem_j, chunk=args.jac_chunk)
+                             jac_problem=problem_j, chunk=args.jac_chunk,
+                             log=lambda msg: print(f"[refresh] {msg}", flush=True))
     print(f"[refresh] GN mass rebuilt at the current model in "
           f"{time.time() - t0:.1f}s", flush=True)
 

@@ -597,3 +597,37 @@ def test_graphed_engine_eval_and_trajectory_equal_eager(cuda_device, method, inv
     _equal_or_within_spread(*runs)
     kinds = sorted(c.kind for c in vg.captures.values())
     assert kinds == ["eval", "factor", "stale"], kinds
+
+
+@pytest.mark.parametrize("method,inv", [("thomas", "lu"), ("bcr", "gj"), ("fused", "lu")])
+def test_graphed_jacobian_equals_eager_on_card(cuda_device, method, inv):
+    """The Gauss-Newton Jacobian from the slab pullback's CUDA graph (the
+    tiny flagship, complex64 refined 6 times, chunk 7: 10 slabs, 3 warm-up
+    slabs and 7 replays) against the eager build: J bit for bit where two
+    eager builds agree bit for bit, else within their spread; the same
+    launches; the graph released and its memory freed."""
+    from hmcmt2d_tpu_torch.models import jacobian as JJ
+
+    prob, m0 = entry.flagship_problem(tiny=True, device=cuda_device,
+                                      cfg=SolveConfig(torch.complex64, 6, method, inv))
+    m = torch.as_tensor(m0 + 0.05 * np.sin(np.arange(len(m0))), dtype=torch.float32,
+                        device=cuda_device)
+    # a first graphed build makes what a process keeps once (the capture
+    # side stream's cuBLAS workspaces), so the measured one shows its own
+    JJ.full_jacobian_chunked(prob, m, chunk=7, graphed=True)
+    builds = []
+    for graphed in (False, True, False):
+        FF.reset_launches()
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        caps = []
+        J = JJ.full_jacobian_chunked(prob, m, chunk=7, graphed=graphed, captures=caps)
+        torch.cuda.synchronize()
+        builds.append((J, FF.launches(), caps, torch.cuda.memory_allocated() - allocated))
+    (e0, n0, c0, _), (g, ng, cg, left), (e1, n1, _, _) = builds
+    assert c0 == [] and [(c["kind"], c["slabs"], c["replays"]) for c in cg] == [
+        ("jacobian", 10, 7)]
+    assert cg[0]["pool_bytes"] > 0 and left == 0
+    assert ng == n0 == n1
+    assert np.abs(g - e0).max() <= np.abs(e1 - e0).max()
+    assert np.isfinite(g).all()

@@ -207,6 +207,70 @@ def emulated_capture(self, kind, fn, inputs):
     return G.Capture(kind, RerunGraph(fn, static, out), static, out, {}, {}, 0.0, 0)
 
 
+class CountedRerunGraph(RerunGraph):
+    """A :class:`RerunGraph` whose replay takes its rerun's launches back out
+    of the counts, as a CUDA graph's replay launches nothing that the
+    wrappers count (its caller adds the capture's delta)."""
+
+    def replay(self):
+        from hmcmt2d_tpu_torch.ops import fused_factor as FF
+
+        before = FF.launches()
+        super().replay()
+        FF.add_launches(FF.launch_delta(FF.launches(), before))
+
+
+def emulated_graph_capture(kind, fn, inputs, device, warmups=None):
+    """``sampler.graphed.capture`` on the CPU, its launch accounting
+    included: the warm-up calls on static copies of the inputs, then a
+    :class:`CountedRerunGraph` whose recording is one call on ``inputs``;
+    the launches of the warm-ups and of that call are taken back out of the
+    counts and kept, as the real capture keeps them.  No pool."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.sampler import graphed as G
+
+    static = tuple(x.clone() for x in inputs)
+    before = FF.launches()
+    for args in warmups or (inputs,) * G.WARMUP_CALLS:
+        G._load(static, args)
+        fn(*static)
+    G._load(static, inputs)
+    warmed = FF.launches()
+    out = fn(*static)
+    after = FF.launches()
+    FF.add_launches(FF.launch_delta(after, before))
+    return G.Capture(kind, CountedRerunGraph(fn, static, out), static, out,
+                     FF.launch_delta(warmed, after), FF.launch_delta(before, warmed),
+                     0.0, 0)
+
+
+@contextlib.contextmanager
+def counted_plain_versions():
+    """Count each call of a kernel's plain version (the CPU's stand-in for
+    a launch) on its wrapper's counter, ``gj_inverse`` through the engines'
+    ``INV_FN["gj"]``; the counts start at 0."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    def counted(fn, wrapper):
+        def call(*a, **k):
+            wrapper.launches += 1
+            return fn(*a, **k)
+        return call
+
+    mp = pytest.MonkeyPatch()
+    try:
+        for name in ("schur_factor", "bt_sweep_fwd", "bt_sweep_bwd"):
+            mp.setattr(FF, f"{name}_plain", counted(getattr(FF, f"{name}_plain"),
+                                                   getattr(FF, name)))
+        mp.setitem(S.INV_FN, "gj", counted(S.INV_FN["gj"], FF.gj_inverse))
+        FF.reset_launches()
+        yield
+    finally:
+        mp.undo()
+        FF.reset_launches()
+
+
 def chain_models(m0: np.ndarray, n_chains: int, scale: float = 0.1,
                  seed: int = 0) -> np.ndarray:
     """(C, P) models around m0; chain 0 is m0 itself."""
