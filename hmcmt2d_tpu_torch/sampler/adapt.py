@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..utils.collectives import all_gather_cat, chain_rows
+from ..utils.trace import span
 from .hmc import (STREAM_WARMUP, STREAM_WARMUP_ROW, ChainState, HMCOptions,
                   HMCResult, MassMatrix, generator, make_sample_step,
                   sample_chain_init, _pred_cast)
@@ -201,29 +202,29 @@ def warmup_scan(potential_vg: Callable, opts: HMCOptions, m_ref,
             state, gen, m_ref, torch.exp(da.log_eps), mass,
             draws=None if draws is None else draws[i])
         state = new
+        with span("adapt.update"):
+            # a diverged trajectory (non-finite dH) is a rejection with
+            # acceptance probability 0: one NaN would poison dual averaging
+            alpha = torch.where(torch.isfinite(alpha), alpha, torch.zeros_like(alpha))
+            alpha_mean = pool_alpha(alpha).to(rdt)
+            da = _da_update(da, alpha_mean, w)
 
-        # a diverged trajectory (non-finite dH) is a rejection with
-        # acceptance probability 0: one NaN would poison dual averaging
-        alpha = torch.where(torch.isfinite(alpha), alpha, torch.zeros_like(alpha))
-        alpha_mean = pool_alpha(alpha).to(rdt)
-        da = _da_update(da, alpha_mean, w)
+            n = n + 1.0
+            s1 = s1 + pool_mean(new.m)
+            s2 = s2 + pool_mean(new.m * new.m)
+            if bool(is_end):
+                # pooled variance over the window's draws of all chains, shrunk
+                # toward unit mass; dual averaging restarts at the current step
+                mean = s1 / n
+                var = torch.clamp(s2 / n - mean * mean, min=1e-12)
+                cnt = n * n_global
+                inv_m = (cnt / (cnt + 5.0)) * var + 1e-3 * (5.0 / (cnt + 5.0))
+                da = _da_init(torch.exp(da.log_eps))
+                n, s1, s2 = torch.zeros_like(n), torch.zeros_like(s1), torch.zeros_like(s2)
 
-        n = n + 1.0
-        s1 = s1 + pool_mean(new.m)
-        s2 = s2 + pool_mean(new.m * new.m)
-        if bool(is_end):
-            # pooled variance over the window's draws of all chains, shrunk
-            # toward unit mass; dual averaging restarts at the current step
-            mean = s1 / n
-            var = torch.clamp(s2 / n - mean * mean, min=1e-12)
-            cnt = n * n_global
-            inv_m = (cnt / (cnt + 5.0)) * var + 1e-3 * (5.0 / (cnt + 5.0))
-            da = _da_init(torch.exp(da.log_eps))
-            n, s1, s2 = torch.zeros_like(n), torch.zeros_like(s1), torch.zeros_like(s2)
-
-        an, asum = an + 1.0, asum + alpha_mean
-        outs.append((new.m.to(sample_dtype), stats, accept, _pred_cast(new.pred),
-                     torch.full((C,), L, dtype=torch.int32, device=new.m.device)))
+            an, asum = an + 1.0, asum + alpha_mean
+            outs.append((new.m.to(sample_dtype), stats, accept, _pred_cast(new.pred),
+                         torch.full((C,), L, dtype=torch.int32, device=new.m.device)))
     carry = WarmupCarry(state, da, inv_m, (n, s1, s2), (an, asum))
     return carry, tuple(torch.stack(o) for o in zip(*outs))
 

@@ -33,6 +33,7 @@ from ..io.startup import HMCConfig
 from ..models import jacobian as JJ
 from ..models.forward import SolveConfig
 from ..models.posterior import InverseProblem, build_inverse_problem
+from ..utils.trace import span
 from . import adapt as A
 from . import checkpoint as CK
 from . import graphed as G
@@ -186,20 +187,23 @@ def gauss_newton_mass(problem: InverseProblem, m_repr: torch.Tensor, reg: float,
     built."""
     pj = jac_problem if jac_problem is not None else problem
     caps = []
-    J = JJ.full_jacobian_chunked(pj, m_repr, chunk=chunk, graphed=graphed, captures=caps)
+    with span("gn.jacobian"):
+        J = JJ.full_jacobian_chunked(pj, m_repr, chunk=chunk, graphed=graphed,
+                                     captures=caps)
     for cap in caps:
         if log is not None:
             log(f"released the GN build's {cap['kind']} graph ({cap['slabs']} slabs "
                 f"of {cap['rows']} rows, {cap['replays']} replayed): pool "
                 f"{cap['pool_bytes']} bytes, captured in {cap['capture_s']:.3f} s")
-    w = np.asarray(problem.weights, np.float64)
-    if np.iscomplexobj(problem.obs):
-        w = np.concatenate([w, w])      # re/im rows share the datum weight
-    Jw = J * w[:, None]
-    M = Jw.T @ Jw + reg * problem.wm_dense()
-    mu = np.trace(M) / M.shape[0]
-    M += jitter * mu * np.eye(M.shape[0])
-    return H.dense_mass(M, m_repr.dtype, problem.device)
+    with span("gn.host"):
+        w = np.asarray(problem.weights, np.float64)
+        if np.iscomplexobj(problem.obs):
+            w = np.concatenate([w, w])      # re/im rows share the datum weight
+        Jw = J * w[:, None]
+        M = Jw.T @ Jw + reg * problem.wm_dense()
+        mu = np.trace(M) / M.shape[0]
+        M += jitter * mu * np.eye(M.shape[0])
+        return H.dense_mass(M, m_repr.dtype, problem.device)
 
 
 def hmc_options(cfg: HMCConfig) -> H.HMCOptions:

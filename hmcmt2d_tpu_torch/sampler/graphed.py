@@ -71,6 +71,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import fused_factor as FF
+from ..utils.trace import span
 
 WARMUP_CALLS = 3   # eager calls on the side stream before a capture
 _SIDE_STREAMS: dict[int, torch.cuda.Stream] = {}
@@ -192,9 +193,11 @@ def capture(kind: str, fn, inputs: tuple, device, warmups=None) -> Capture:
 def replay(cap: Capture, inputs: tuple):
     """Load ``inputs`` into the capture's static inputs, replay its graph
     and count its launches; returns its static outputs."""
-    _load(cap.inputs, inputs)
-    cap.graph.replay()
-    FF.add_launches(cap.launches)
+    with span("graphed.load"):
+        _load(cap.inputs, inputs)
+    with span("graphed.launch"):
+        cap.graph.replay()
+        FF.add_launches(cap.launches)
     return cap.out
 
 
@@ -235,14 +238,17 @@ class GraphedPotential:
                              f"problem is on {dev}")
         cap = self.captures.get(key)
         if cap is None:
-            cap = self.captures[key] = self._capture(kind, fn, inputs)
+            with span("graphed.capture"):
+                cap = self.captures[key] = self._capture(kind, fn, inputs)
         return replay(cap, inputs)
 
     def factor(self, m: torch.Tensor):
         """``factor_fn(m)`` from the factor graph: the graph's static
         ``Factorization``, rewritten in place by every call (see the module
         docstring); the stale eval takes only this."""
-        return self._replay(("factor",) + _signature(m), "factor", self.factor_fn, (m,))
+        with span("graphed.factor"):
+            return self._replay(("factor",) + _signature(m), "factor", self.factor_fn,
+                                (m,))
 
     def _factor_key(self, fac) -> tuple:
         for key, cap in self.captures.items():
@@ -253,16 +259,19 @@ class GraphedPotential:
                          "buffers; take factors from its factor()")
 
     def __call__(self, m: torch.Tensor, m_ref: torch.Tensor, fac=None):
-        if fac is None:
-            key, kind, fn = ("eval",) + _signature(m, m_ref), "eval", self.eval_fn
-        else:
-            key = ("stale", self._factor_key(fac)) + _signature(m, m_ref)
-            kind = "stale"
+        kind = "eval" if fac is None else "stale"
+        with span("graphed." + kind):
+            if fac is None:
+                key, fn = ("eval",) + _signature(m, m_ref), self.eval_fn
+            else:
+                key = ("stale", self._factor_key(fac)) + _signature(m, m_ref)
 
-            def fn(m_s, r_s):
-                return self.eval_fn(m_s, r_s, fac)
+                def fn(m_s, r_s):
+                    return self.eval_fn(m_s, r_s, fac)
 
-        return _clone(self._replay(key, kind, fn, (m, m_ref)))
+            out = self._replay(key, kind, fn, (m, m_ref))
+            with span("graphed.clone"):
+                return _clone(out)
 
     def release(self) -> list[dict]:
         """Drop every capture, its graph and its pool, and return the

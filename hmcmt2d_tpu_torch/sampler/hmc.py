@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.trace import span
 
 
 class MassMatrix(NamedTuple):
@@ -139,17 +140,18 @@ def _leapfrog(potential_vg: Callable, opts: HMCOptions, mass: MassMatrix,
     aux, g = (state.misfit, state.mnorm, state.pred), state.grad
     fac = factor_fn(m) if factor_fn is not None else None
     for k in range(n_steps):
-        dm = dt * mass.apply_inv(p)
-        dm_max = dm.abs().amax(dim=-1, keepdim=True)
-        m = m + dm * torch.clamp(opts.max_step_size / dm_max, max=1.0)
-        m, p = reflect_bounds(m, p, opts.log_sig_lo, opts.log_sig_hi)
-        if factor_fn is not None:
-            if k > 0 and k % opts.refactor_every == 0:
-                fac = factor_fn(m)
-            (_, aux), g = potential_vg(m, m_ref, fac)
-        else:
-            (_, aux), g = potential_vg(m, m_ref)
-        p = p - (0.5 * dt if k == n_steps - 1 else dt) * g
+        with span("hmc.step"):
+            dm = dt * mass.apply_inv(p)
+            dm_max = dm.abs().amax(dim=-1, keepdim=True)
+            m = m + dm * torch.clamp(opts.max_step_size / dm_max, max=1.0)
+            m, p = reflect_bounds(m, p, opts.log_sig_lo, opts.log_sig_hi)
+            if factor_fn is not None:
+                if k > 0 and k % opts.refactor_every == 0:
+                    fac = factor_fn(m)
+                (_, aux), g = potential_vg(m, m_ref, fac)
+            else:
+                (_, aux), g = potential_vg(m, m_ref)
+            p = p - (0.5 * dt if k == n_steps - 1 else dt) * g
     misfit, mnorm, pred = aux
     return ChainState(m=m, grad=g, misfit=misfit, mnorm=mnorm, pred=pred), p
 
@@ -180,41 +182,45 @@ def make_sample_step(potential_vg: Callable, opts: HMCOptions,
 
     def sample_step(state: ChainState, gen: torch.Generator, m_ref, dt: float,
                     mass: MassMatrix, draws=None):
-        c = state.m.shape[0]
-        if draws is None:
-            L = int(torch.randint(opts.steps_lo, opts.steps_hi + 1, (),
-                                  generator=gen, device=gen.device))
-            p0 = keep_rows(mass.draw(gen, draw_shape(state.m.shape, rows, n_global)),
-                           rows)
-            u = keep_rows(torch.rand(draw_shape((c,), rows, n_global), generator=gen,
-                                     dtype=torch.float64, device=gen.device), rows)
-        else:
-            L, p0, u = draws
-        ke0 = mass.kinetic(p0)
-        h0 = state.misfit + state.mnorm + ke0
-        prop, p1 = _leapfrog(potential_vg, opts, mass, state, p0, m_ref, L, dt,
-                             factor_fn=factor_fn)
-        h1 = prop.misfit + prop.mnorm + mass.kinetic(p1)
+        with span("hmc.iteration"):
+            c = state.m.shape[0]
+            if draws is None:
+                with span("hmc.draw"):
+                    L = int(torch.randint(opts.steps_lo, opts.steps_hi + 1, (),
+                                          generator=gen, device=gen.device))
+                    p0 = keep_rows(mass.draw(gen, draw_shape(state.m.shape, rows,
+                                                             n_global)), rows)
+                    u = keep_rows(torch.rand(draw_shape((c,), rows, n_global),
+                                             generator=gen, dtype=torch.float64,
+                                             device=gen.device), rows)
+            else:
+                L, p0, u = draws
+            ke0 = mass.kinetic(p0)
+            h0 = state.misfit + state.mnorm + ke0
+            prop, p1 = _leapfrog(potential_vg, opts, mass, state, p0, m_ref, L, dt,
+                                 factor_fn=factor_fn)
+            with span("hmc.mh"):
+                h1 = prop.misfit + prop.mnorm + mass.kinetic(p1)
 
-        # MH: accept if dH > 0 or u < exp(dH).  A proposal with any
-        # non-finite component is never accepted and reports alpha = 0: a
-        # finite energy with a non-finite gradient would poison every later
-        # trajectory through the carried gradient.
-        dh = h0 - h1
-        finite = (torch.isfinite(h1) & torch.isfinite(prop.grad).all(dim=-1)
-                  & torch.isfinite(prop.m).all(dim=-1))
-        accept = finite & ((dh > 0) | (u < torch.exp(dh)))
-        alpha = torch.where(finite, torch.exp(torch.clamp(dh, max=0.0)),
-                            torch.zeros_like(dh))
+                # MH: accept if dH > 0 or u < exp(dH).  A proposal with any
+                # non-finite component is never accepted and reports alpha =
+                # 0: a finite energy with a non-finite gradient would poison
+                # every later trajectory through the carried gradient.
+                dh = h0 - h1
+                finite = (torch.isfinite(h1) & torch.isfinite(prop.grad).all(dim=-1)
+                          & torch.isfinite(prop.m).all(dim=-1))
+                accept = finite & ((dh > 0) | (u < torch.exp(dh)))
+                alpha = torch.where(finite, torch.exp(torch.clamp(dh, max=0.0)),
+                                    torch.zeros_like(dh))
 
-        def pick(a, b):
-            return torch.where(accept.reshape((c,) + (1,) * (a.ndim - 1)), a, b)
+                def pick(a, b):
+                    return torch.where(accept.reshape((c,) + (1,) * (a.ndim - 1)), a, b)
 
-        new = ChainState(*(pick(a, b) for a, b in zip(prop, state)))
-        h = new.misfit + new.mnorm + ke0
-        stats = torch.stack([new.misfit.to(h.dtype), new.mnorm.to(h.dtype),
-                             ke0.to(h.dtype), h], dim=-1)
-        return new, accept, stats, alpha, L
+                new = ChainState(*(pick(a, b) for a, b in zip(prop, state)))
+                h = new.misfit + new.mnorm + ke0
+                stats = torch.stack([new.misfit.to(h.dtype), new.mnorm.to(h.dtype),
+                                     ke0.to(h.dtype), h], dim=-1)
+            return new, accept, stats, alpha, L
 
     return sample_step
 
