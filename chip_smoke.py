@@ -30,7 +30,11 @@ Phases, each of which exits non-zero on failure:
    panels of 16) at the blocks they invert (one thomas line, B = 176, n =
    95, in complex64 and complex128; bcr's level 0, B = 176 x 32) with
    ``torch.linalg.inv`` as its yardstick, and at n = 1, 2, 31, 32, 33, 64,
-   95, 96, 127, 128 in both types;
+   95, 96, 127, 128 in both types; and the boundary fields' kernels
+   (``mt1d_field`` with its tangent variant, ``mt1d_field_vjp``) at the
+   main path's 8,536 columns of n = 56, against their plain versions in
+   complex128 (to 1e-7) and complex64 (no less accurate against complex128
+   than the plain version);
 4. the main path: one batched potential value-and-grad of the flagship at
    full width, C = 8, on the fused kernels, served by a CUDA graph
    (``sampler/graphed.py``: captured in this first call, then replayed),
@@ -48,8 +52,8 @@ Phases, each of which exits non-zero on failure:
    from the same state: the same accepts, models within 1e-5;
 7. the inversion run through the command line, ``hmcmt2d-torch run``, on the
    full-width flagship written to files: 8 chains, warmup under the bcr
-   engine (the default under the fused kernels) served from its graphs
-   (fresh eval, factor, stale eval; released at the switch), the
+   engine (the default under the fused kernels) served from its fresh
+   eval's graph (no stale factor on the card; released at the switch), the
    Gauss-Newton mass, the switch to the fused kernels for the dense-mass
    re-adaptation and the main phase, checkpoints, then a resume to more
    samples; with the launch counts of each run held to its fused gradient
@@ -115,7 +119,9 @@ Phases, each of which exits non-zero on failure:
    busy share; host launch calls of a graphed eval in single digits);
    capture seconds and pool bytes; gj_inverse 55 (thomas, thomas_blocked)
    or 6 (bcr) times a factor replay and a fresh eval, none a stale eval,
-   none under LU; (b) a cut warmup (8 iterations at ``timestep: 6 10``
+   none under LU (the graphs' own factor, which the sharded sampler
+   amortises with; ``BatchedSampler`` on the card takes none); (b) a cut
+   warmup (8 iterations at ``timestep: 6 10``
    from one seed, through ``BatchedSampler``) graphed against eager on
    bcr+lu, thomas+lu and bcr+gj: the same accepts and leapfrog steps, dt
    and models within 1e-5, and the seconds of each;
@@ -270,9 +276,134 @@ def flagship_system(problem, m):
     return FF.flatten_system(*ssys)[:3]
 
 
+# the boundary fields' kernels against their plain versions: complex128 to
+# rounding; complex64 no less accurate against the complex128 plain version
+# than the complex64 plain version (twice its error plus 1e-5 of a column's
+# largest entry), as tests/test_torch_cuda.py holds them
+MT1D_REL_TOL_C128 = 1e-7
+
+
+def _mt1d_col_err(got, want, cols=slice(None)) -> float:
+    """Largest error of a column over that column's largest entry."""
+    d = (got - want)[:, cols].abs().max(1).values
+    return float((d / want[:, cols].abs().max(1).values).max())
+
+
+def mt1d_columns(torch, problem, m):
+    """The main path's boundary columns (``models/forward.py``
+    ``boundary_grids_both``) at model m (C, P): omega (N,), sigma (N, n)
+    and dz (n,), float64, N = nfreq x C x (ny + 1), n = nz."""
+    from hmcmt2d_tpu_torch.models import forward as F
+
+    prof = F.boundary_profiles(problem.mesh, problem.sigma2d(m).double())  # (C, ny+1, nz)
+    sig = prof.reshape(-1, prof.shape[-1])
+    om = 2.0 * np.pi * torch.as_tensor(problem.fwd.data.freqs, dtype=torch.float64,
+                                       device=sig.device)
+    return (om.repeat_interleave(sig.shape[0]).contiguous(),
+            sig.repeat(len(om), 1).contiguous(), problem.mesh.z_len.double().contiguous())
+
+
+def check_mt1d(torch, problem, m) -> dict:
+    """Phase 3's boundary fields: the forward (e, h), vjp and tangent
+    kernels (``ops/mt1d.py``) at the main path's columns against their
+    plain versions, in complex128 and complex64, with their times and least
+    bytes; results as ``check_kernels`` keeps them."""
+    from hmcmt2d_tpu_torch.ops import mt1d as TD
+
+    om64, sg64, dz64 = mt1d_columns(torch, problem, m)
+    N, n = sg64.shape
+    n_air = problem.mesh.n_air
+    say(f"[kernels] boundary fields: {N} columns of n = {n} ({n_air} air)")
+    e, h, _ = TD.field_plain(om64, sg64, dz64)
+    keep = (e.abs() > 1e-3 * e.abs().max(1, keepdim=True).values) & \
+        (h.abs() > 1e-3 * h.abs().max(1, keepdim=True).values)
+    gen = torch.Generator(device=sg64.device).manual_seed(SEED)
+
+    def draw(like):
+        return torch.randn(like.shape, dtype=like.dtype, device=like.device, generator=gen)
+
+    ge = torch.where(keep, draw(e), 0)
+    gh = torch.where(keep, draw(e), 0) / h.abs().max(1, keepdim=True).values
+    ds = draw(sg64) * sg64
+    ds[:, :n_air] = 0
+    outs, calls, cut_differs = {}, {}, {}
+    for rdt in (torch.float64, torch.float32):
+        cdt = TD.MT1D_DTYPES[rdt]
+        om, sg, dz, d = (t.to(rdt) for t in (om64, sg64, dz64, ds))
+        g_e, g_h = ge.to(cdt), gh.to(cdt)
+        pe, ph, cut = TD.field_plain(om, sg, dz)
+        ke, kh, kcut = TD.mt1d_field(om, sg, dz)
+        kv = TD.mt1d_field_vjp(om, sg, dz, cut, g_e, g_h)
+        kde, kdh = TD.mt1d_field_tangent(om, sg, dz, cut, d)
+        torch.cuda.synchronize()
+        # the overflow guard's |E| test rounds as each version rounds: in
+        # complex64 a column may cut an interface apart, where |E| is
+        # already far below the 1e-3 that the comparison keeps
+        cut_differs[str(cdt)] = int((kcut != cut).sum())
+        if rdt == torch.float64 and cut_differs[str(cdt)]:
+            fail(f"mt1d_field ({cdt}): {cut_differs[str(cdt)]} columns cut apart from "
+                 "the plain forward's")
+        pv = TD.field_vjp_plain(om, sg, dz, cut, g_e, g_h)
+        pde, pdh = TD.field_tangent_plain(om, sg, dz, cut, d)
+        outs[rdt] = {"mt1d_field": ((ke, pe, keep), (kh, ph, keep)),
+                     "mt1d_field_vjp": ((kv, pv, None),),
+                     "mt1d_field_tangent": ((kde, pde, keep), (kdh, pdh, keep))}
+        if rdt == torch.float32:
+            calls = {
+                "mt1d_field": (lambda: TD.mt1d_field(om, sg, dz),
+                               lambda: TD.field_plain(om, sg, dz)),
+                "mt1d_field_vjp": (lambda: TD.mt1d_field_vjp(om, sg, dz, cut, g_e, g_h),
+                                   lambda: TD.field_vjp_plain(om, sg, dz, cut, g_e, g_h)),
+                "mt1d_field_tangent": (lambda: TD.mt1d_field_tangent(om, sg, dz, cut, d),
+                                       lambda: TD.field_tangent_plain(om, sg, dz, cut, d))}
+    earth = slice(n_air, None)
+    cb, rb = 8 * N * (n + 1), 4 * N * n          # a complex64 field, a float32 profile
+    least_bytes = {"mt1d_field": 4 * N + rb + 4 * n + 2 * cb + 4 * N,
+                   "mt1d_field_vjp": 4 * N + rb + 4 * n + 4 * N + 2 * cb
+                   + 2 * 8 * N * TD.work_rows(n) + rb,
+                   "mt1d_field_tangent": 4 * N + 2 * rb + 4 * n + 4 * N + 2 * cb}
+    results = {}
+    for name in outs[torch.float32]:
+        worst = None
+        for (k64, p64, m64), (k32, p32, _) in zip(outs[torch.float64][name],
+                                                  outs[torch.float32][name]):
+            mask = 1 if m64 is None else m64
+            cols = earth if m64 is None else slice(None)
+            c128 = _mt1d_col_err(k64 * mask, p64 * mask, cols)
+            if not c128 < MT1D_REL_TOL_C128:
+                fail(f"{name} (complex128): error {c128:.3e} against its plain version, "
+                     f"not below {MT1D_REL_TOL_C128:.0e}")
+            k, p = (x.to(p64.dtype) * mask for x in (k32, p32))
+            t = p64 * mask
+            rel, plain_rel = _mt1d_col_err(k, t, cols), _mt1d_col_err(p, t, cols)
+            tol = 2 * plain_rel + 1e-5
+            abs_e = float((k - p)[:, cols].abs().max())
+            if worst is None or rel / tol > worst["rel"] / worst["tol"]:
+                worst = dict(rel=rel, tol=tol, abs=abs_e, plain_rel=plain_rel,
+                             rel_c128=c128)
+        kern, plain = calls[name]
+        results[name] = dict(
+            worst, columns=N, n=n, cut_differs=cut_differs,
+            kernel_ms=time_ms(torch, kern, 20), plain_ms=time_ms(torch, plain, 3),
+            library_ms=None, library="none: no PyTorch call computes it",
+            flops=0.0, bytes=least_bytes[name],
+            bound_formula="least bytes / bandwidth; a column's chain of dependent steps "
+                          "(2n forward, ~4n vjp), not bytes, limits it, and its least "
+                          "time is not computed here")
+    del outs, calls
+    return results
+
+
+# a two-mode gradient eval's launches of each of phase 3's kernels (the
+# sweeps 14; the tangent runs only in forward mode, jv)
+LAUNCHES_PER_EVAL_3 = {"schur_factor": 1, "schur_factor_polish": 0, "mt1d_field": 1,
+                       "mt1d_field_vjp": 1, "mt1d_field_tangent": 0}
+
+
 def check_kernels(torch, problem, m, flops_peak, bw_peak):
     """Phase 3: every kernel against its plain version at main-path shapes;
-    ``gj_inverse`` at the blocks the thomas and bcr engines invert."""
+    ``gj_inverse`` at the blocks the thomas and bcr engines invert; the
+    boundary fields' kernels at the main path's columns."""
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
     from hmcmt2d_tpu_torch.ops import solver as S
 
@@ -347,6 +478,7 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
 
     gj = check_gj_inverse(torch, d, oy, oz)
     results["gj_inverse"] = dict(gj.pop("complex64_thomas_line"), variants=gj)
+    results.update(check_mt1d(torch, problem, m))
 
     for name, r in list(results.items()) + [("gj_inverse/" + k, v) for k, v in gj.items()]:
         t_ops = r["flops"] / flops_peak * 1e3
@@ -373,7 +505,7 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
              "achieved_TFLOPs": r["flops"] / r["kernel_ms"] / 1e9,
              "flops": r["flops"], "bytes": r["bytes"],
              "library_ms": r["library_ms"], "library": r["library"],
-             "launches_per_eval": {"schur_factor": 1, "schur_factor_polish": 0}.get(name, 14)})
+             "launches_per_eval": LAUNCHES_PER_EVAL_3.get(name, 14)})
     for name, r in list(results.items()) + [("gj_inverse/" + k, v) for k, v in gj.items()]:
         if not r["rel"] <= r["tol"]:
             fail(f"{name}: max relative error {r['rel']:.3e} > {r['tol']:.0e}")
@@ -562,7 +694,8 @@ def profile_eval(torch, vg, m, m_ref) -> dict:
                 host_calls["graph"] += e.count
     total = sum(ms for ms, _ in kernels.values())
     ours = {}
-    for short in ("schur_factor_kernel", "bt_sweep_fwd_kernel", "bt_sweep_bwd_kernel"):
+    for short in ("schur_factor_kernel", "bt_sweep_fwd_kernel", "bt_sweep_bwd_kernel",
+                  "mt1d_field_kernel", "mt1d_vjp_kernel"):
         hit = [(ms, n) for k, (ms, n) in kernels.items() if short in k]
         ours[short] = {"ms": sum(ms for ms, _ in hit), "count": sum(n for _, n in hit)}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
@@ -578,7 +711,9 @@ def profile_eval(torch, vg, m, m_ref) -> dict:
 
 # phase 12: the graphed eval against the eager one on phase 4's inputs
 GRAPH_TIMED_EVALS = 20
-EVAL_PER_REPLAY = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+# the boundary fields' kernels (ops/mt1d.py): a forward and a vjp a gradient eval
+MT1D_PER_EVAL = {"mt1d_field": 1, "mt1d_field_vjp": 1}
+EVAL_PER_REPLAY = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14, **MT1D_PER_EVAL}
 OUTPUT_NAMES = ("U", "misfit", "mnorm", "pred", "grad")
 
 
@@ -661,8 +796,9 @@ def check_graphed(torch, problem, vg, vg_eager, m, m_ref, smi) -> dict:
         fail(f"12: launches {counts} != {want} for {replays} replays")
     if any(c.launches != EVAL_PER_REPLAY for c in vg.captures.values()):
         fail(f"12: a capture recorded {caps}, not {EVAL_PER_REPLAY} an eval")
-    if ours_g != {"schur_factor_kernel": 1, "bt_sweep_fwd_kernel": 14,
-                  "bt_sweep_bwd_kernel": 14} or prof_g["host_graph_launch_calls"] < 1:
+    if ours_g != {"schur_factor_kernel": 1, "bt_sweep_fwd_kernel": 14, "bt_sweep_bwd_kernel": 14,
+                  "mt1d_field_kernel": 1, "mt1d_vjp_kernel": 1} \
+            or prof_g["host_graph_launch_calls"] < 1:
         fail(f"12: the profiled replay ran {ours_g} of our kernels in "
              f"{prof_g['host_graph_launch_calls']} graph launches")
     return summary
@@ -820,9 +956,10 @@ def output_names(n_chains: int) -> list[str]:
 
 def check_cli_run(torch, problem, m0, smi, d: Path):
     """Phase 7: ``hmcmt2d-torch run`` on the flagship, written to files in
-    ``d``, then resumed; the warmup runs on bcr from its graphs (fresh
-    eval, factor, stale eval; released at the switch), and every fused
-    gradient eval launches the factor once and each sweep 14 times.
+    ``d``, then resumed; the warmup runs on bcr from its fresh eval's
+    graph (no stale factor on the card; released at the switch), and every fused
+    gradient eval launches the factor once and each sweep 14 times (and,
+    as every gradient eval, the boundary fields' forward and vjp once).
     Returns the launch counts of the two runs and
     the first run's phase seconds; the files and the checkpoint
     ``d / "run.ckpt.npz"`` stay for phase 9b."""
@@ -884,13 +1021,13 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
         fail(f"hmcmt2d-torch run returned {rc1}, {rc2}")
     if not switch:
         fail("hmcmt2d-torch run did not warm up on bcr and switch to the fused kernels")
-    # run 1: bcr's fresh eval (the chain init), factor and stale eval in
-    # warmup, released at the switch, then the fused eval; the resumed run
-    # only the fused eval
-    want_caps = [["bcr:eval", "bcr:factor", "bcr:stale", "fused:eval"], ["fused:eval"]]
-    if [capture_kinds(caps1), capture_kinds(caps2)] != want_caps or released != 3:
+    # run 1: bcr's fresh eval in warmup (every eval: the card amortises no
+    # factor, sampler/driver.py make_factor_fn), released at the switch,
+    # then the fused eval; the resumed run only the fused eval
+    want_caps = [["bcr:eval", "fused:eval"], ["fused:eval"]]
+    if [capture_kinds(caps1), capture_kinds(caps2)] != want_caps or released != 1:
         fail(f"the two runs captured {[capture_kinds(caps1), capture_kinds(caps2)]}, not "
-             f"{want_caps}, and released {released} warmup graphs at the switch, not 3")
+             f"{want_caps}, and released {released} warmup graphs at the switch, not 1")
     if gn_released != 1:
         fail(f"run 1 logged {gn_released} Gauss-Newton Jacobian graphs released, not 1")
     if missing:
@@ -906,7 +1043,7 @@ def check_cli_run(torch, problem, m0, smi, d: Path):
     for i, (counts, n_eval) in enumerate(zip((launches1, launches2), evals)):
         want = {"schur_factor": n_eval, "bt_sweep_fwd": 14 * n_eval,
                 "bt_sweep_bwd": 14 * n_eval}
-        if counts != want or n_eval == 0:
+        if fused_only(counts) != want or n_eval == 0 or not mt1d_ran(counts, n_eval):
             fail(f"run {i + 1}: launches {counts} != {want} for {n_eval} fused evals")
     return (launches1, launches2), secs[0]
 
@@ -1103,7 +1240,7 @@ def flip_margin(torch, vg, opts, mass, m, m_ref, models, i, c):
 def launch_check(name, rank, run):
     want = {"schur_factor": run["evals"], "bt_sweep_fwd": 14 * run["evals"],
             "bt_sweep_bwd": 14 * run["evals"]}
-    if run["launches"] != want:
+    if fused_only(run["launches"]) != want or not mt1d_ran(run["launches"], run["evals"]):
         fail(f"{name} rank {rank}: launches {run['launches']} != {want} for "
              f"{run['evals']} fused evals")
 
@@ -1430,7 +1567,8 @@ def check_sharded_cli(problem, m0, smi):
 
 # phase 9
 SINGLE_MODE_SURVEYS = ((("ZXY", "TZY"), "Impedance_Tipper"), (("RhoYX", "PhsYX"), "Rho_Phs"))
-SINGLE_MODE_LAUNCHES = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+SINGLE_MODE_LAUNCHES = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14,
+                        **MT1D_PER_EVAL}
 
 
 def check_single_mode(torch, m, m_ref, eval_ms_phase4, smi):
@@ -1584,7 +1722,7 @@ def check_tools(torch, d: Path, smi, dev):
     if rows != readapt + samples or n_warm != readapt or not finite or diagonal:
         fail(f"9b: refreshed checkpoint {rows} rows, n_warm {n_warm}, finite {finite}, "
              f"diagonal mass {diagonal}")
-    if launches != want or evals == 0:
+    if fused_only(launches) != want or evals == 0 or not mt1d_ran(launches, evals):
         fail(f"9b: refresh_extend launches {launches} != {want} for {evals} fused evals")
     if not np.isfinite(chi2_end).all() or not chi2_end[b] < chi2_start[b]:
         fail(f"9b: map_fit chi2 {chi2_end} against the start's {chi2_start}")
@@ -1707,7 +1845,8 @@ def check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi):
         g64 = g.double()
         cos = float(((g64 * g_ref).sum(-1) / (g64.norm(dim=-1) * g_ref.norm(dim=-1))).min())
         finite = bool(torch.isfinite(U).all() and torch.isfinite(g).all())
-        # one factor an eval: the eval launches what the factor did
+        # one factor an eval: the eval launches what the factor did, and
+        # the boundary fields' kernels
         want_gj = gj_per_factor(method, inv, nzi)
         want = dict(NO_LAUNCHES, **({"gj_inverse": want_gj} if want_gj else {}))
         gj_launches[label] = {"factor": per_factor.get("gj_inverse", 0),
@@ -1721,10 +1860,11 @@ def check_engines(torch, problem, m, m_ref, U_ref, g_ref, smi):
                      "finite": finite, "top": prof["top"],
                      "seconds": time.perf_counter() - t_engine})
         vgs.append(vg)
-        if (per_factor != want or counts != want or not finite
+        if (per_factor != want or counts != {**want, **MT1D_PER_EVAL} or not finite
                 or not u_rel <= U_REL_TOL or not cos >= GRAD_COS_MIN):
             bad.append(f"{label}: launches a factor {per_factor}, an eval {counts} "
-                       f"(wanted {want}), finite {finite}, U {u_rel:.3e}, cosine {cos:.6f}")
+                       f"(wanted {want} and the boundary fields'), finite {finite}, "
+                       f"U {u_rel:.3e}, cosine {cos:.6f}")
         del prob, U, g
     del x_ref, b
     raw = {f"{row['engine']}+{row['inv']}": row["unrefined_rel_err"] for row in rows}
@@ -1901,6 +2041,13 @@ def fused_only(counts: dict) -> dict:
     return {k: counts.get(k, 0) for k in NO_LAUNCHES}
 
 
+def mt1d_ran(counts: dict, evals: int) -> bool:
+    """Whether a run that made ``evals`` fused gradient evals among others
+    (warmup, predictions, a GN build's one forward and a vjp a slab)
+    launched the boundary fields' forward and vjp at least once an eval."""
+    return min(counts.get("mt1d_field", 0), counts.get("mt1d_field_vjp", 0)) >= evals
+
+
 def check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s):
     """10b: the GN build's memory under bcr and thomas, measured the same
     way at the start model: the whole build within GN_MARGIN_BYTES of
@@ -1928,7 +2075,7 @@ def check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s):
          "gn_margin_gb": GN_MARGIN_BYTES / 1e9,
          "solve_128_rhs": {k: {kk: vv / 1e9 for kk, vv in v.items()} for k, v in solve.items()},
          "solve_limit_gb": {k: v / 1e9 for k, v in limits.items()}, "launches": gn_launches})
-    if gn_launches != NO_LAUNCHES:
+    if fused_only(gn_launches) != NO_LAUNCHES:
         fail(f"10b: a GN build on thomas or bcr launched fused kernels: {gn_launches}")
     if not gn_peak["bcr"] <= gn_peak["thomas"] + GN_MARGIN_BYTES:
         fail(f"10b: the bcr GN build peaked {gn_peak['bcr'] / 1e9:.2f} GB over its start, "
@@ -1947,11 +2094,11 @@ def check_gn_and_thomas_hybrid(torch, problem, m0, smi, phase7_s):
     if run["rc"] != 0 or not switch:
         fail(f"10b: rc {run['rc']}, engine switch logged {switch}")
     check_outputs("10b", run)
-    if "peak_bytes" not in gn or gn["launches_after"] != NO_LAUNCHES:
+    if "peak_bytes" not in gn or fused_only(gn["launches_after"]) != NO_LAUNCHES:
         fail(f"10b: the GN build did not run, or warmup and GN launched fused kernels: {gn}")
     if run["log"].count(GN_LOG_14) != 1:
         fail("10b: the run's GN build did not log its Jacobian graph released")
-    if run["launches"] != want:
+    if fused_only(run["launches"]) != want or not mt1d_ran(run["launches"], evals):
         fail(f"10b: launches {run['launches']} != {want} for {evals} fused evals")
 
 
@@ -2032,7 +2179,7 @@ def check_graphed_engines(torch, problem, m, m_ref, smi) -> dict:
     eval, none under LU, and no fused kernel.  Returns the gj_inverse
     launches of a graphed factor replay, by engine."""
     from hmcmt2d_tpu_torch.models.forward import SolveConfig
-    from hmcmt2d_tpu_torch.sampler.driver import make_factor_fn, make_potential_vg
+    from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg
     from hmcmt2d_tpu_torch.sampler.graphed import GraphedPotential
 
     rng = np.random.default_rng(2)
@@ -2048,15 +2195,15 @@ def check_graphed_engines(torch, problem, m, m_ref, smi) -> dict:
         vg = make_potential_vg(prob, 1.0)
         if not isinstance(vg, GraphedPotential):
             fail(f"13: make_potential_vg did not serve {label} on the card from graphs")
-        kinds = {"graphed": (vg, make_factor_fn(prob, vg)),
+        kinds = {"graphed": (vg, vg.factor),
                  "eager": (make_potential_vg(prob, 1.0, graphed=False),
-                           make_factor_fn(prob))}
+                           prob.factor_state)}
         # the three captures (fresh eval, factor, stale eval), before timing
         vg(m, m_ref)
         vg(m, m_ref, vg.factor(m2))
         per = gj_per_factor(method, inv, nzi)
-        want = {"eval": {"gj_inverse": per} if per else {},
-                "factor": {"gj_inverse": per} if per else {}, "stale": {}}
+        gj = {"gj_inverse": per} if per else {}
+        want = {"eval": {**gj, **MT1D_PER_EVAL}, "factor": gj, "stale": MT1D_PER_EVAL}
         ms = {k: {c: [] for c in want} for k in kinds}
         outs = {k: {name: [] for name, _, _ in models} for k in kinds}
         for _ in range(ROUNDS_13):
@@ -2130,8 +2277,9 @@ def check_graphed_engines(torch, problem, m, m_ref, smi) -> dict:
 def cut_warmup(torch, prob, m_start, m_ref, graphed: bool) -> dict:
     """N_WARM_13 warmup iterations (dual-averaged dt, windowed diagonal
     mass) at the production leapfrog keys (``timestep: 6 10``,
-    ``timeinterval: 0.03``), trajectory-amortised, from seed SEED, through
-    the sampler a run takes (``BatchedSampler``); its graphs, if any, are
+    ``timeinterval: 0.03``), from seed SEED, through the sampler a run
+    takes (``BatchedSampler``, asked to amortise: on the card every eval
+    is fresh, graphed or eager); its graphs, if any, are
     released at the end.  Returns the iterations' records, dt and
     seconds."""
     from hmcmt2d_tpu_torch.sampler import adapt as A
@@ -2516,10 +2664,11 @@ def window_launch_check(tag: str, w, init_eval: bool) -> dict:
     """The timed window ``w`` of ``bench._measure``: its batched evals (one
     a leapfrog step, the chains of an iteration sharing L, and with
     ``init_eval`` the start model's, a window without warmup) each launched
-    (1, 14, 14) and no other kernel.  Returns its summary."""
+    (1, 14, 14) and the boundary fields' forward and vjp once, and no
+    other kernel.  Returns its summary."""
     evals = int(w.result.lf_steps[:, 0].sum()) + int(init_eval)
     want = {"schur_factor": evals, "bt_sweep_fwd": 14 * evals,
-            "bt_sweep_bwd": 14 * evals}
+            "bt_sweep_bwd": 14 * evals, "mt1d_field": evals, "mt1d_field_vjp": evals}
     got = {k: n for k, n in w.launches.items() if n or k in want}
     if got != want or evals == 0:
         fail(f"bench {tag}: window launches {w.launches} != {want} for {evals} evals")
@@ -2700,7 +2849,7 @@ def main() -> None:
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = FF.launches()
     say({"main_path_launches": counts})
-    want = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+    want = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14, **MT1D_PER_EVAL}
     if counts != want:
         fail(f"launch counts {counts} != expected {want}")
     if not (torch.isfinite(U).all() and torch.isfinite(g).all()):
@@ -2833,13 +2982,19 @@ def main() -> None:
         "bt_sweep_fwd": "hmcmt2d_tpu/ops/pallas_factor.py:357",
         "bt_sweep_bwd": "hmcmt2d_tpu/ops/pallas_factor.py:383",
         "gj_inverse": "hmcmt2d_tpu/ops/blockinv.py:41 (inv_nopivot, XLA ops)",
+        "mt1d_field": "hmcmt2d_tpu/ops/mt1d.py (the lax.scans of surface_impedance and "
+                      "analytic_field, XLA ops)",
     }
+    replaces["mt1d_field_vjp"] = replaces["mt1d_field_tangent"] = replaces["mt1d_field"]
     source = {
         "schur_factor": "hmcmt2d_tpu_torch/csrc/schur_factor.cu",
         "schur_factor_polish": "hmcmt2d_tpu_torch/csrc/schur_factor.cu",
         "bt_sweep_fwd": "hmcmt2d_tpu_torch/csrc/bt_sweep_fwd.cu",
         "bt_sweep_bwd": "hmcmt2d_tpu_torch/csrc/bt_sweep_bwd.cu",
         "gj_inverse": "hmcmt2d_tpu_torch/csrc/gj_inverse.cu",
+        "mt1d_field": "hmcmt2d_tpu_torch/csrc/mt1d_field.cu",
+        "mt1d_field_vjp": "hmcmt2d_tpu_torch/csrc/mt1d_field.cu",
+        "mt1d_field_tangent": "hmcmt2d_tpu_torch/csrc/mt1d_field.cu",
     }
     kernels = []
     for k, r in kres.items():
@@ -2868,6 +3023,18 @@ def main() -> None:
                                                     "kernel_ms", "plain_ms", "bound_ms",
                                                     "share_of_bound", "library_ms")}
                           for v, r2 in r["variants"].items()})
+        elif k.startswith("mt1d"):
+            # the tangent variant counts under mt1d_field and runs only in jv
+            counted = "mt1d_field" if k == "mt1d_field_tangent" else k
+            entry.update(columns=r["columns"], n=r["n"], rel_tol=r["tol"],
+                         columns_cut_apart=r["cut_differs"],
+                         plain_max_rel_err=r["plain_rel"], max_rel_err_c128=r["rel_c128"],
+                         launches=LAUNCHES_PER_EVAL_3[k] and counts.get(counted, 0),
+                         launches_graphed_replays=LAUNCHES_PER_EVAL_3[k]
+                         and graph_summary["launches"].get(counted, 0),
+                         launches_bench=LAUNCHES_PER_EVAL_3[k]
+                         and bench_launches.get(counted, 0),
+                         launches_counted_as=counted)
         else:
             entry.update(launches=counts[k],
                          launches_graphed_replays=graph_summary["launches"][k],

@@ -44,6 +44,7 @@ not compiled for.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -71,6 +72,32 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous() or t.is_conj() or t.is_neg():
         raise ValueError(f"{name} must be contiguous, with no lazy conj/neg bit")
+
+
+def _storage(t: torch.Tensor) -> torch.Tensor:
+    """The tensor beneath ``torch.func.jvp``'s wrappers, which have no
+    storage for a kernel to read.  A ``vmap`` batch is refused: no kernel
+    here has a batching rule."""
+    while torch._C._functorch.is_functorch_wrapped_tensor(t):
+        if torch._C._functorch.is_batchedtensor(t):
+            raise ValueError("the CUDA kernels have no vmap rule")
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
+
+
+def beneath_transforms(launch):
+    """Run a kernel launch beneath ``torch.func``'s transforms: under
+    ``torch.func.jvp`` (``models/jacobian.py`` ``jv``) the traced function
+    hands wrapped tensors to the factor and an autograd.Function's ``jvp``
+    gets its saved tensors and tangents wrapped, and every tensor made
+    there is wrapped too.  The launch reads the values beneath its tensor
+    arguments and makes its outputs outside the transform; functorch treats
+    them as constants, or wraps what a ``jvp`` returns."""
+    @functools.wraps(launch)
+    def run(*args):
+        with torch._C._DisableFuncTorch():
+            return launch(*(_storage(a) if isinstance(a, torch.Tensor) else a for a in args))
+    return run
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -237,6 +264,11 @@ def schur_factor(diag: torch.Tensor, offy: torch.Tensor,
         raise ValueError(f"polish must be >= 0, got {polish}")
     if _on_cpu(diag):
         return schur_factor_plain(diag, offy, offz, polish)
+    return _launch_factor(diag, offy, offz, polish)
+
+
+@beneath_transforms
+def _launch_factor(diag, offy, offz, polish: int) -> torch.Tensor:
     B, nzi, q = diag.shape
     plan = schur_factor_plan(q, polish)
     lib = kernel_build.library()
@@ -290,6 +322,7 @@ def bt_sweep_bwd_plain(G: torch.Tensor, offz: torch.Tensor,
     return torch.stack(xs[::-1], dim=1)
 
 
+@beneath_transforms
 def _sweep(name: str, plan: LaunchPlan, G: torch.Tensor, offz: torch.Tensor,
            v: torch.Tensor) -> torch.Tensor:
     if G.data_ptr() % 16:
@@ -396,6 +429,11 @@ def gj_inverse(A: torch.Tensor) -> torch.Tensor:
     inverts a block.  A general matrix may need a pivot this never takes."""
     if _on_cpu(A):
         return gj_inverse_blocked(A)
+    return _launch_gj(A)
+
+
+@beneath_transforms
+def _launch_gj(A: torch.Tensor) -> torch.Tensor:
     if A.ndim < 2 or A.shape[-2] != A.shape[-1]:
         raise ValueError(f"gj_inverse takes square matrices, got {tuple(A.shape)}")
     n = A.shape[-1]
@@ -416,11 +454,20 @@ def gj_inverse(A: torch.Tensor) -> torch.Tensor:
 gj_inverse.launches = 0
 
 KERNELS = (schur_factor, bt_sweep_fwd, bt_sweep_bwd)
-_BY_NAME = {k.__name__: k for k in KERNELS + (gj_inverse,)}
+# counted kernels off the fused factor and solve, which appear in launches()
+# only when nonzero: gj_inverse, and those that register()
+_OPTIONAL = {"gj_inverse": gj_inverse}
+
+
+def register(wrapper) -> None:
+    """Count another kernel's wrapper (``wrapper.launches``) under its name
+    in :func:`launches`, only when nonzero, and in :func:`add_launches` and
+    :func:`reset_launches` (``ops/mt1d.py`` registers its two)."""
+    _OPTIONAL[wrapper.__name__] = wrapper
 
 
 def reset_launches() -> None:
-    for k in KERNELS + (gj_inverse,):
+    for k in KERNELS + tuple(_OPTIONAL.values()):
         k.launches = 0
     schur_factor.polish_launches = 0
 
@@ -428,14 +475,14 @@ def reset_launches() -> None:
 def launches() -> dict[str, int]:
     """Launches of each fused-path kernel since the last
     :func:`reset_launches`; the factor's polish variant
-    (``schur_factor_polish``) and the engines' ``gj_inverse`` count apart,
-    and appear only when nonzero, so the fused path's dict keeps its three
-    keys."""
+    (``schur_factor_polish``), the engines' ``gj_inverse`` and the
+    registered kernels (the boundary fields' ``mt1d_field`` and
+    ``mt1d_field_vjp``) count apart, and appear only when nonzero, so a
+    path that runs none of them keeps the three keys."""
     out = {k.__name__: k.launches for k in KERNELS}
     if schur_factor.polish_launches:
         out["schur_factor_polish"] = schur_factor.polish_launches
-    if gj_inverse.launches:
-        out["gj_inverse"] = gj_inverse.launches
+    out.update((name, k.launches) for name, k in _OPTIONAL.items() if k.launches)
     return out
 
 
@@ -451,11 +498,12 @@ def add_launches(delta: dict[str, int]) -> None:
     its capture recorded without passing through the wrappers, so the
     replaying code (``sampler/graphed.py``) adds the capture's delta here
     once a replay."""
+    by_name = {k.__name__: k for k in KERNELS} | _OPTIONAL
     for name, n in delta.items():
         if name == "schur_factor_polish":
             schur_factor.polish_launches += n
         else:
-            _BY_NAME[name].launches += n
+            by_name[name].launches += n
 
 
 # ---------------------------------------------------------------------------

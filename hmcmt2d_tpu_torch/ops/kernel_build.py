@@ -34,6 +34,8 @@ _ENTRY_POINTS = {
     "hmc_bt_sweep_fwd": (4, 7),   # B, nzi, q; plan: qp, ring, threads, smem
     "hmc_bt_sweep_bwd": (4, 7),   # B, nzi, q; plan: qp, ring, threads, smem
     "hmc_gj_inverse": (2, 7),     # B, n; plan: qp, threads, smem, panel; complex128
+    "hmc_mt1d_field": (7, 5),     # N, n, dz_batched; plan: threads; float64
+    "hmc_mt1d_vjp": (8, 5),       # N, n, dz_batched; plan: threads; float64
 }
 
 _lib: ctypes.CDLL | None = None

@@ -86,11 +86,27 @@ def make_potential_vg(problem: InverseProblem, reg: float,
     return vg
 
 
+def no_stale_factor(m):
+    """The trajectory-amortisation hook that makes no factor: the leapfrog
+    hands ``potential_vg`` None, so every eval factors afresh."""
+    return None
+
+
 def make_factor_fn(problem: InverseProblem, potential_vg=None):
     """Batched model -> merged-mode factorisation (trajectory amortisation)
     for ``potential_vg``'s stale evals: its factor graph when it is graphed
     (whose stale eval takes only that factor), else the eager
-    ``problem.factor_state``."""
+    ``problem.factor_state``.
+
+    On a CUDA device, :func:`no_stale_factor`: every eval factors afresh.
+    There a stale eval and its share of the factors cost what a fresh eval
+    costs (bcr + LU on an H100, the dprism2d warmup: 34.7 ms and a 28.5 ms
+    factor every ~3.3 steps, against 42.8 ms), and once dual averaging
+    restarts the step the stale eval's refinement leaves errors that flip
+    Metropolis decisions a fresh eval gets right against the complex128
+    reference (PERF.md, the warmup check)."""
+    if problem.device.type == "cuda":
+        return no_stale_factor
     if isinstance(potential_vg, G.GraphedPotential):
         return potential_vg.factor
     return problem.factor_state
@@ -317,7 +333,8 @@ def run_inversion(cfg: HMCConfig, mesh, sigma2d, data, obs, err,
     opts = hmc_options(cfg)
     # trajectory amortisation is off under the fused engine, the JAX
     # package's rule (its fused factor is cheap next to the 10 extra
-    # refinement solves of a stale one); on the card that is not measured yet
+    # refinement solves of a stale one); on the card make_factor_fn turns it
+    # off for every engine
     amortize = cfg.amortize and problem.fwd.cfg.solver_method != "fused"
     eng = make_sampler(problem, cfg.reg_param, amortize, device_mesh, graphed)
 

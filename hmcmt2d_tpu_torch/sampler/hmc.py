@@ -134,7 +134,8 @@ def _leapfrog(potential_vg: Callable, opts: HMCOptions, mass: MassMatrix,
     ``factor_fn`` (batched model -> factorisation) turns on the
     trajectory-amortised path: the factor is built at the trajectory start
     and at every step k > 0 with k % ``opts.refactor_every`` == 0, and
-    ``potential_vg`` then takes it as a third argument."""
+    ``potential_vg`` then takes it as a third argument (a None from
+    ``factor_fn`` makes those evals factor afresh)."""
     p = p0 - 0.5 * dt * state.grad
     m = state.m
     aux, g = (state.misfit, state.mnorm, state.pred), state.grad

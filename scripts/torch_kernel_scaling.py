@@ -10,7 +10,12 @@ Times ``gj_inverse`` (n = 95) alone (B = 1), one an SM (132), at the
 engines' batches, B = 176 (one thomas line) and 5,632 (bcr's level 0), in
 complex64, and B = 176 in complex128; with ``--variants``, the complex64
 kernel at one and at two blocks an SM, and each step of its panel loop
-alone (a scratch build that includes ``csrc/gj_inverse.cu``).  Then it prints what ``nvcc -Xptxas -v`` reports
+alone (a scratch build that includes ``csrc/gj_inverse.cu``).  Times the
+boundary fields' kernels (``ops/mt1d.py``: forward, vjp, tangent) at the
+benchmark cells' column counts (11 x 8 x 97 columns of n = 56, 12 x 8 x 77
+of n = 52) beside their plain version's forward and autograd backward,
+each captured in a CUDA graph as an eval is (a checkout without the
+kernels times the plain version alone).  Then it prints what ``nvcc -Xptxas -v`` reports
 for each kernel (registers, spills; one "Compiling" line per template
 instance).  Run from the root of a checkout:
 
@@ -306,6 +311,80 @@ def gj_variants(torch, kernel_build, A_by_batch: dict) -> None:
         print(json.dumps(row), flush=True)
 
 
+# the benchmark cells' boundary columns: frequencies x chains x profiles, layers
+MT1D_SHAPES = (("dprism2d", 11, 8, 97, 56), ("coprod2", 12, 8, 77, 52))
+
+
+def graph_ms(torch, fn, calls: int = 20) -> float:
+    """``stream_ms`` of a CUDA graph of fn() (captured after 3 warm-ups on
+    a side stream), as the eval replays its work."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return stream_ms(torch, graph.replay, calls)
+
+
+def mt1d_times(torch, dev) -> None:
+    """The boundary fields at the cells' shapes (flagship-like profiles,
+    complex64): each kernel's graphed time, and the plain version's forward
+    and autograd backward, graphed, with its count of device kernels."""
+    from hmcmt2d_tpu_torch.ops import mt1d as TD
+
+    kernels = hasattr(TD, "mt1d_field_vjp")
+    rng = np.random.default_rng(0)
+    air = np.array([100.0, 300, 1000, 3000, 10000, 30000, 100000])
+    for name, nf, nc, ncol, n in MT1D_SHAPES:
+        dz = np.concatenate([air[::-1], np.full(n - 16, 100.0), 100.0 * 2.0 ** np.arange(1, 10)])
+        sig = np.exp(rng.uniform(np.log(0.005), np.log(0.02), (nc * ncol, n)))
+        sig[:, :7] = 1e-8
+        om = np.repeat(2 * np.pi * np.logspace(2, -2, nf), len(sig))
+        om, sg, dz = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                      for a in (om, np.tile(sig, (nf, 1)), dz))
+        N = sg.shape[0]
+        g = torch.ones((N, n + 1), dtype=torch.complex64, device=dev)
+
+        def plain():
+            s = sg.detach().requires_grad_(True)
+            with torch.enable_grad():
+                e, h, _ = TD._propagate(om[:, None], s, dz, True)
+                return torch.autograd.grad((e.real + h.real).sum(), s)
+
+        row = {"mt1d": name, "columns": N, "n": n, "plain_fwd_bwd_ms": graph_ms(torch, plain)}
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            plain()
+            torch.cuda.synchronize()
+        row["plain_device_kernels"] = sum(e.count for e in prof.key_averages()
+                                          if e.device_type.name == "CUDA")
+        if kernels:
+            _, _, cut = TD.mt1d_field(om, sg, dz)
+            row["mt1d_field_ms"] = graph_ms(torch, lambda: TD.mt1d_field(om, sg, dz))
+            row["mt1d_field_vjp_ms"] = graph_ms(
+                torch, lambda: TD.mt1d_field_vjp(om, sg, dz, cut, g, g))
+            row["mt1d_field_tangent_ms"] = graph_ms(
+                torch, lambda: TD.mt1d_field_tangent(om, sg, dz, cut, sg))
+            # one warp's columns alone: the latency of a column's chain of
+            # dependent steps as these kernels run it, a replay's overhead
+            # included; a yardstick, not the hardware's bound
+            w = slice(0, 32)
+            row["mt1d_field_one_warp_ms"] = graph_ms(
+                torch, lambda: TD.mt1d_field(om[w], sg[w], dz))
+            row["mt1d_field_vjp_one_warp_ms"] = graph_ms(
+                torch, lambda: TD.mt1d_field_vjp(om[w], sg[w], dz, cut[w], g[w], g[w]))
+            # least bytes: sigma in; e, h out (forward); cotangents in, the
+            # gradient out and the scratch written and read once (vjp)
+            cb = 8 * N * (n + 1)
+            row["mt1d_field_bytes_bound_ms"] = (4 * N * n + 2 * cb) / 3.35e9
+            row["mt1d_field_vjp_bytes_bound_ms"] = (
+                4 * N * n * 2 + 2 * cb + 2 * 8 * N * TD.work_rows(n)) / 3.35e9
+        print(json.dumps(row), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=HERE,
@@ -376,6 +455,7 @@ def main() -> None:
               flush=True)
     if args.variants:
         gj_variants(torch, kernel_build, A_c64)
+    mt1d_times(torch, dev)
     for line in ptxas_report(kernel_build):
         print(json.dumps({"ptxas": line}), flush=True)
 

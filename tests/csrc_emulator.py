@@ -15,7 +15,8 @@ without nvcc's contractions).  It cannot say how fast a kernel is or
 whether nvcc accepts it.
 
 ``build(out_dir)`` returns the loaded library, with the C entry points
-``hmc_gj_inverse`` and ``hmc_schur_factor`` of the sources.
+``hmc_gj_inverse``, ``hmc_schur_factor``, ``hmc_mt1d_field`` and
+``hmc_mt1d_vjp`` of the sources.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "hmcmt2d_tpu_torch" / "csrc"
-SOURCES = ("gj_inverse.cu", "schur_factor.cu")
+SOURCES = ("gj_inverse.cu", "schur_factor.cu", "mt1d_field.cu")
 SMEM_BYTES = 232_448
 
 RUNTIME_H = r"""
@@ -182,5 +183,10 @@ def build(out_dir: Path) -> ctypes.CDLL:
     dll.hmc_gj_inverse.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     dll.hmc_schur_factor.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                                      + [ctypes.c_void_p])
-    dll.hmc_gj_inverse.restype = dll.hmc_schur_factor.restype = ctypes.c_int
+    dll.hmc_mt1d_field.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                                   + [ctypes.c_void_p])
+    dll.hmc_mt1d_vjp.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                                 + [ctypes.c_void_p])
+    for fn in (dll.hmc_gj_inverse, dll.hmc_schur_factor, dll.hmc_mt1d_field, dll.hmc_mt1d_vjp):
+        fn.restype = ctypes.c_int
     return dll

@@ -1,7 +1,8 @@
-"""The CUDA sources of ``gj_inverse`` and ``schur_factor`` run on the CPU
-(``tests/csrc_emulator.py``: one OS thread a CUDA thread, g++), held
-against their plain versions, and their C entry points' plan checks held
-against the launch plans of ``ops/fused_factor.py`` for every width.
+"""The CUDA sources of ``gj_inverse``, ``schur_factor`` and ``mt1d_field``
+run on the CPU (``tests/csrc_emulator.py``: one OS thread a CUDA thread,
+g++), held against their plain versions, and their C entry points' plan
+checks held against the launch plans of ``ops/fused_factor.py`` for every
+width (``ops/mt1d.py``'s block of one warp).
 
 The emulation runs the kernels' own indexing, padding, barriers and
 shuffles, so it catches an index or a missing barrier here where only the
@@ -16,7 +17,9 @@ import pytest
 import torch
 
 from hmcmt2d_tpu_torch.ops import fused_factor as FF
+from hmcmt2d_tpu_torch.ops import mt1d as TD
 from tests import csrc_emulator
+from tests.test_torch_mt1d_kernel import FLOOR, N_AIR, column_err, cotangents, profiles
 
 torch.set_num_threads(1)
 
@@ -113,3 +116,169 @@ def test_schur_factor_entry_takes_exactly_the_plan(lib, polish):
         assert call(p.smem_bytes) == 0, q
         assert call(p.smem_bytes + 8) != 0, q
         assert call(p.smem_bytes - 8) != 0, q
+
+
+def _mt1d_field(lib, om, sg, dz, ds=None, cut=None):
+    """The forward (or, with ds and cut, its tangent variant) of the
+    emulated source; outputs start as NaN, so an unwritten entry shows."""
+    N, n = sg.shape
+    cdt = TD.MT1D_DTYPES[sg.dtype]
+    e = torch.full((N, n + 1), complex("nan+nanj"), dtype=cdt)
+    h = e.clone()
+    cut = torch.full((N,), -1, dtype=torch.int32) if cut is None else cut
+    err = lib.hmc_mt1d_field(om.data_ptr(), sg.data_ptr(), dz.data_ptr(),
+                             None if ds is None else ds.data_ptr(), cut.data_ptr(), e.data_ptr(),
+                             h.data_ptr(), N, n, int(dz.ndim == 2), TD.MT1D_THREADS,
+                             int(sg.dtype == torch.float64), None)
+    assert err == 0
+    return e, h, cut
+
+
+def _mt1d_vjp(lib, om, sg, dz, cut, ge, gh):
+    N, n = sg.shape
+    cdt = TD.MT1D_DTYPES[sg.dtype]
+    work = torch.full((TD.work_rows(n), N), complex("nan+nanj"), dtype=cdt)
+    g = torch.full((N, n), float("nan"), dtype=sg.dtype)
+    err = lib.hmc_mt1d_vjp(om.data_ptr(), sg.data_ptr(), dz.data_ptr(), cut.data_ptr(),
+                           None if ge is None else ge.data_ptr(),
+                           None if gh is None else gh.data_ptr(), work.data_ptr(), g.data_ptr(),
+                           N, n, int(dz.ndim == 2), TD.MT1D_THREADS,
+                           int(sg.dtype == torch.float64), None)
+    assert err == 0
+    return g
+
+
+def _mt1d_all(lib, case, dtype, floor, batched):
+    """The emulated source's e, h, vjp and tangent at ``case`` in ``dtype``
+    beside the plain versions' (the derivatives under the plain forward's
+    cut), with complex128 cotangents on the interfaces above ``floor`` and
+    a tangent on the earth layers."""
+    om, sg, dz = (torch.as_tensor(a) for a in case)
+    e, h, _ = TD.field_plain(om, sg, dz)
+    ge, gh, keep = cotangents(e, h, floor)
+    ds = torch.as_tensor(np.random.default_rng(2).standard_normal(sg.shape)) * sg
+    ds[:, :N_AIR] = 0
+    om, sg, dz, ds = (a.to(dtype) for a in (om, sg, dz, ds))
+    if batched:
+        dz = dz.expand(sg.shape).contiguous()
+    ge, gh = ge.to(TD.MT1D_DTYPES[dtype]), gh.to(TD.MT1D_DTYPES[dtype])
+    pe, ph, cut = TD.field_plain(om, sg, dz)
+    ke, kh, _ = _mt1d_field(lib, om, sg, dz)
+    kde, kdh, kcut = _mt1d_field(lib, om, sg, dz, ds, cut.clone())
+    assert torch.equal(kcut, cut)   # the tangent variant reads the cut
+    kernel = (ke, kh, _mt1d_vjp(lib, om, sg, dz, cut, ge, gh),
+              _mt1d_vjp(lib, om, sg, dz, cut, ge, None), kde, kdh)
+    plain = (pe, ph, TD.field_vjp_plain(om, sg, dz, cut, ge, gh),
+             TD.field_vjp_plain(om, sg, dz, cut, ge, None))
+    plain += TD.field_tangent_plain(om, sg, dz, cut, ds)
+    return kernel, plain, keep
+
+
+MT1D_CASES = [(56, "mild", False), (56, "clamps", True), (52, "mild", True), (52, "wide", False)]
+
+
+@pytest.mark.parametrize("n,kind,batched", MT1D_CASES)
+def test_mt1d_source_matches_plain_complex128(lib, n, kind, batched):
+    """complex128: e and h above the floor, the vjp (with and without h's
+    cotangent) on the earth layers and the tangent against the plain
+    versions, to rounding as the up/down split amplifies it; dz shared by
+    every column or a row each."""
+    floor = FLOOR[torch.float64]
+    kernel, plain, keep = _mt1d_all(lib, profiles(n, kind), torch.float64, floor, batched)
+    cols = [slice(None)] * 2 + [slice(N_AIR, None)] * 2 + [slice(None)] * 2
+    for i, (k, p, c) in enumerate(zip(kernel, plain, cols)):
+        assert bool(torch.isfinite(torch.view_as_real(k) if k.is_complex() else k).all()), i
+        m = keep if i in (0, 1, 4, 5) else 1
+        assert column_err(k * m, p * m, c) < 1e-7, i
+
+
+@pytest.mark.parametrize("n,kind,batched", [(56, "mild", False), (52, "mild", True)])
+def test_mt1d_source_matches_plain_complex64(lib, n, kind, batched):
+    """complex64, on the flagship-like profiles (on the wide ones the
+    complex64 derivatives of either version stray from the truth by tens
+    of percent: tests/test_torch_mt1d_kernel.py): the emulated source no
+    less accurate than the plain version against the plain complex128 truth
+    (twice its error, plus 1e-5 of the column's largest entry), e and h
+    above the floor, the vjp on the earth layers."""
+    case = profiles(n, kind)
+    floor = FLOOR[torch.float32]
+    kernel, plain, keep = _mt1d_all(lib, case, torch.float32, floor, batched)
+    _, truth, _ = _mt1d_all(lib, case, torch.float64, floor, batched)
+    cols = [slice(None)] * 2 + [slice(N_AIR, None)] * 2 + [slice(None)] * 2
+    for i, (k, p, t, c) in enumerate(zip(kernel, plain, truth, cols)):
+        m = keep if i in (0, 1, 4, 5) else 1
+        k, p = (a.to(t.dtype) * m for a in (k, p))
+        t = t * m
+        assert column_err(k, t, c) <= 2 * column_err(p, t, c) + 1e-5, i
+
+
+def test_mt1d_entries_take_exactly_the_plan(lib):
+    """hmc_mt1d_field and hmc_mt1d_vjp accept their plan (N = 0: the check,
+    no launch) in both precisions and with dz shared or a row each, and
+    refuse another block, no layer, a negative N, and a flag outside 0/1."""
+    def field(N=0, n=56, batched=0, threads=TD.MT1D_THREADS, dbl=0):
+        return lib.hmc_mt1d_field(None, None, None, None, None, None, None, N, n, batched,
+                                  threads, dbl, None)
+
+    def vjp(N=0, n=56, batched=0, threads=TD.MT1D_THREADS, dbl=0):
+        return lib.hmc_mt1d_vjp(None, None, None, None, None, None, None, None, N, n, batched,
+                                threads, dbl, None)
+
+    for entry in (field, vjp):
+        for dbl in (0, 1):
+            for batched in (0, 1):
+                assert entry(dbl=dbl, batched=batched) == 0
+        assert entry(n=1) == 0
+        assert entry(threads=64) != 0 and entry(threads=16) != 0
+        assert entry(n=0) != 0 and entry(N=-1) != 0
+        assert entry(dbl=2) != 0 and entry(batched=2) != 0
+
+
+def test_mt1d_card_path_on_the_emulated_source(lib, monkeypatch):
+    """ops/mt1d.py's card path (analytic_field's columns, _AnalyticField,
+    the launch wrappers) with the emulated source in place of the built
+    library, on the tiny flagship's CPU problem: a fused gradient eval
+    launches the forward and the vjp once each, jv (torch.func.jvp) the
+    forward and its tangent variant; potential, gradient, jv and jtv agree
+    with the plain path's, which launches nothing."""
+    import types
+
+    from hmcmt2d_tpu_torch import entry
+    from hmcmt2d_tpu_torch.models import jacobian as JJ
+    from hmcmt2d_tpu_torch.models.forward import SolveConfig
+    from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg
+
+    def check(t, name, dtype, shape, device):
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous() \
+                or t.is_conj() or t.is_neg():
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, expected {dtype} {shape}")
+
+    prob, m0 = entry.flagship_problem(tiny=True, device="cpu",
+                                      cfg=SolveConfig(torch.complex64, 6, "fused"))
+    rng = np.random.default_rng(0)
+    m = torch.as_tensor(m0 + 0.1 * rng.standard_normal((2, len(m0))), dtype=torch.float32)
+    v = torch.as_tensor(rng.standard_normal(len(m0)), dtype=torch.float32)
+    w = torch.as_tensor(rng.standard_normal(JJ.n_rows(prob)), dtype=torch.float32)
+    vg = make_potential_vg(prob, 1.0, graphed=False)
+
+    def run():
+        FF.reset_launches()
+        (U, _), g = vg(m, m)
+        eval_counts = FF.launches()
+        FF.reset_launches()
+        out = (U, g, JJ.jv(prob, m[0], v), JJ.jtv(prob, m[0], w))
+        return out, eval_counts, FF.launches()
+
+    want, cpu_eval, cpu_counts = run()
+    assert cpu_eval == cpu_counts == {"schur_factor": 0, "bt_sweep_fwd": 0, "bt_sweep_bwd": 0}
+    monkeypatch.setattr(TD, "FF", types.SimpleNamespace(
+        _on_cpu=lambda t: False, _check=check, _stream=lambda: None,
+        _raise_on=FF._raise_on))
+    monkeypatch.setattr(TD, "kernel_build", types.SimpleNamespace(library=lambda: lib))
+    got, eval_counts, counts = run()
+    assert eval_counts == {"schur_factor": 0, "bt_sweep_fwd": 0, "bt_sweep_bwd": 0,
+                           "mt1d_field": 1, "mt1d_field_vjp": 1}
+    assert counts == {"schur_factor": 0, "bt_sweep_fwd": 0, "bt_sweep_bwd": 0,
+                      "mt1d_field": 3, "mt1d_field_vjp": 1}
+    for a, b in zip(got, want):
+        assert relerr(a, b) < 1e-4

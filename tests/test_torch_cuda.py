@@ -12,10 +12,14 @@ import torch
 from hmcmt2d_tpu_torch import entry
 from hmcmt2d_tpu_torch.models.forward import SolveConfig
 from hmcmt2d_tpu_torch.ops import fused_factor as FF
+from hmcmt2d_tpu_torch.ops import mt1d as TD
 from hmcmt2d_tpu_torch.sampler.driver import make_potential_vg
 
 FACTOR_TOL = 2e-5
 SWEEP_TOL = 1e-5
+# a gradient eval's boundary fields: one forward and one vjp launch
+MT1D = {"mt1d_field": 1, "mt1d_field_vjp": 1}
+FUSED = ("schur_factor", "bt_sweep_fwd", "bt_sweep_bwd")
 
 pytestmark = pytest.mark.cuda
 
@@ -114,7 +118,8 @@ def test_single_mode_fused_eval_launches(cuda_device):
                         dtype=torch.float32)
     FF.reset_launches()
     (U, _), g = make_potential_vg(gpu, 1.0)(m.to(cuda_device), m.to(cuda_device))
-    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14,
+                             **MT1D}
     (Uc, _), gc = make_potential_vg(cpu, 1.0)(m, m)
     assert relerr(U.cpu(), Uc) < 1e-4
     g, gc = g.cpu().double(), gc.double()
@@ -168,7 +173,8 @@ def test_fused_gradient_on_card_matches_cpu(cuda_device):
                         dtype=torch.float32)
     FF.reset_launches()
     (U, _), g = make_potential_vg(gpu, 1.0)(m.to(cuda_device), m.to(cuda_device))
-    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14,
+                             **MT1D}
     (Uc, _), gc = make_potential_vg(cpu, 1.0)(m, m)
     assert relerr(U.cpu(), Uc) < 1e-4
     g, gc = g.cpu().double(), gc.double()
@@ -201,8 +207,11 @@ def test_jacobian_on_card_matches_cpu_complex128(cuda_device):
                                      cfg=SolveConfig(torch.complex64, 3, "thomas"))
     cpu, _ = entry.flagship_problem(tiny=True, device="cpu")
     m = m0 + 0.05 * np.sin(np.arange(len(m0)))
+    FF.reset_launches()
     J = full_jacobian_chunked(gpu, torch.as_tensor(m, dtype=torch.float32,
                                                    device=cuda_device), chunk=16)
+    counts = FF.launches()   # the boundary fields: one forward, a vjp a slab
+    assert counts["mt1d_field"] == 1 and counts["mt1d_field_vjp"] > 1
     J_ref = full_jacobian_chunked(cpu, torch.as_tensor(m), chunk=16)
     assert np.isfinite(J).all()
     assert float(np.abs(J - J_ref).max() / np.abs(J_ref).max()) < 1e-4
@@ -225,7 +234,7 @@ def test_bcr_on_card_matches_cpu_complex128(cuda_device):
     FF.reset_launches()
     mg = torch.as_tensor(m, dtype=torch.float32, device=cuda_device)
     (U, _), g = make_potential_vg(gpu, 1.0)(mg, mg)
-    assert FF.launches() == {"schur_factor": 0, "bt_sweep_fwd": 0, "bt_sweep_bwd": 0}
+    assert FF.launches() == {"schur_factor": 0, "bt_sweep_fwd": 0, "bt_sweep_bwd": 0, **MT1D}
     mc = torch.as_tensor(m)
     (Uc, _), gc = make_potential_vg(cpu, 1.0)(mc, mc)
     assert relerr(U.cpu().double(), Uc) < 1e-4
@@ -312,7 +321,7 @@ def test_gj_engines_on_card_match_cpu_complex128(cuda_device):
         FF.reset_launches()
         (U, _), g = make_potential_vg(gpu, 1.0)(mg, mg)
         assert FF.launches() == {"schur_factor": 0, "bt_sweep_fwd": 0, "bt_sweep_bwd": 0,
-                                 "gj_inverse": per_factor}, method
+                                 "gj_inverse": per_factor, **MT1D}, method
         assert relerr(U.cpu().double(), Uc) < 1e-4, method
         g = g.cpu().double()
         cos = (g * gc).sum(-1) / (g.norm(dim=-1) * gc.norm(dim=-1))
@@ -322,7 +331,9 @@ def test_gj_engines_on_card_match_cpu_complex128(cuda_device):
 def test_run_inversion_main_phase_on_the_kernels(cuda_device):
     """A hybrid run (thomas warmup, fused main phase) on the card: the main
     phase launches the factor once per fused gradient eval (one at the
-    switch, then one a leapfrog step) and each sweep 14 times."""
+    switch, then one a leapfrog step) and each sweep 14 times; every
+    gradient eval of both phases launches the boundary fields' forward and
+    vjp kernels once."""
     from hmcmt2d_tpu_torch.io import HMCConfig
     from hmcmt2d_tpu_torch.sampler.driver import run_inversion
 
@@ -333,8 +344,10 @@ def test_run_inversion_main_phase_on_the_kernels(cuda_device):
                         warmup_solve_cfg=SolveConfig(torch.complex64, 3, "thomas"))
     evals = 1 + int(run.result.lf_steps[run.n_warm:, 0].sum())
     assert run.problem.fwd.cfg.solver_method == "fused" and run.n_warm == 4
-    assert FF.launches() == {"schur_factor": evals, "bt_sweep_fwd": 14 * evals,
-                             "bt_sweep_bwd": 14 * evals}
+    counts = FF.launches()
+    assert {k: counts[k] for k in FUSED} == {"schur_factor": evals, "bt_sweep_fwd": 14 * evals,
+                                             "bt_sweep_bwd": 14 * evals}
+    assert min(counts["mt1d_field"], counts["mt1d_field_vjp"]) > evals
     assert torch.isfinite(run.result.stats).all()
     assert run.result.final.m.device.type == "cuda"
 
@@ -361,7 +374,8 @@ def test_bench_measure_ess_launches(cuda_device, monkeypatch):
     (w,) = windows
     evals = int(w.result.lf_steps[:, 0].sum())
     assert w.launches == {"schur_factor": evals, "bt_sweep_fwd": 14 * evals,
-                          "bt_sweep_bwd": 14 * evals}
+                          "bt_sweep_bwd": 14 * evals, "mt1d_field": evals,
+                          "mt1d_field_vjp": evals}
     assert stats["nfevals"] == 2 * evals + 2
     assert "gj_inverse" not in counts and counts["schur_factor"] > evals
     assert stats["kernel_mass"] == "gauss-newton" and stats["kernel_adapted"]
@@ -508,17 +522,21 @@ def test_graphed_eval_equals_eager_on_two_models(cuda_device):
 
 def test_graphed_replay_counts_one_eval(cuda_device):
     """The capture's warm-ups and recording leave the counts as they were;
-    each replay adds (1, 14, 14)."""
+    each replay of the two-mode eval adds (1, 14, 14) and the boundary
+    fields' forward and vjp once each."""
     vg, _, (ma, _mb) = _graphed_pair(cuda_device, 2, 4)
     FF.reset_launches()
     vg(ma, ma)
-    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14,
+                             **MT1D}
     for k in (2, 3):
         vg(ma, ma)
         assert FF.launches() == {"schur_factor": k, "bt_sweep_fwd": 14 * k,
-                                 "bt_sweep_bwd": 14 * k}
+                                 "bt_sweep_bwd": 14 * k, "mt1d_field": k,
+                                 "mt1d_field_vjp": k}
     (cap,) = vg.captures.values()
-    assert cap.launches == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+    assert cap.launches == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14, **MT1D}
+    assert cap.summary()["launches_per_replay"] == cap.launches
     assert cap.warmup_launches["schur_factor"] == 3 and cap.pool_bytes > 0
 
 
@@ -561,7 +579,6 @@ def test_graphed_engine_eval_and_trajectory_equal_eager(cuda_device, method, inv
     a factor replay launches gj_inverse once a line (thomas) or a level
     (bcr) under gj, none under LU, and the stale eval none."""
     from hmcmt2d_tpu_torch.sampler import hmc as H
-    from hmcmt2d_tpu_torch.sampler.driver import make_factor_fn
     from hmcmt2d_tpu_torch.sampler.graphed import GraphedPotential
 
     cfg = SolveConfig(torch.complex64, 6, method, inv)
@@ -576,7 +593,7 @@ def test_graphed_engine_eval_and_trajectory_equal_eager(cuda_device, method, inv
 
     nzi = gpu.mesh.nz - 1
     per_factor = 0 if inv == "lu" else (nzi.bit_length() if method == "bcr" else nzi)
-    factor = make_factor_fn(gpu, vg)
+    factor = vg.factor
     FF.reset_launches()
     fac = factor(mb)
     assert FF.launches().get("gj_inverse", 0) == per_factor
@@ -590,7 +607,7 @@ def test_graphed_engine_eval_and_trajectory_equal_eager(cuda_device, method, inv
     p0 = torch.as_tensor(np.clip(rng.standard_normal((2, len(m0))), -2.5, 2.5),
                          dtype=torch.float32, device=cuda_device)
     runs = []
-    for fn, fac_fn in ((vg, factor), (eager, make_factor_fn(gpu)), (eager, make_factor_fn(gpu))):
+    for fn, fac_fn in ((vg, factor), (eager, gpu.factor_state), (eager, gpu.factor_state)):
         state = H.sample_chain_init(fn, ma, ma)
         prop, p1 = H._leapfrog(fn, opts, mass, state, p0, ma, 5, opts.dt, factor_fn=fac_fn)
         runs.append(tuple(prop) + (p1,))
@@ -631,3 +648,115 @@ def test_graphed_jacobian_equals_eager_on_card(cuda_device, method, inv):
     assert ng == n0 == n1
     assert np.abs(g - e0).max() <= np.abs(e1 - e0).max()
     assert np.isfinite(g).all()
+
+
+def _mt1d_columns(n_freq, n_chain, n_col, n, device, seed=0):
+    """The benchmark cells' boundary columns: n_freq frequencies 1e2..1e-2
+    Hz x n_chain chains x n_col profiles of 7 air layers over n - 7 earth
+    layers graded as the flagship's, earth 0.005..0.02 S/m (the flagship's
+    start); float64 omega (N,), sigma (N, n), dz (n,) on ``device``."""
+    rng = np.random.default_rng(seed)
+    air = np.array([100.0, 300, 1000, 3000, 10000, 30000, 100000])
+    dz = np.concatenate([air[::-1], np.full(n - 16, 100.0), 100.0 * 2.0 ** np.arange(1, 10)])
+    sig = np.exp(rng.uniform(np.log(0.005), np.log(0.02), (n_chain * n_col, n)))
+    sig[:, :7] = 1e-8
+    om = 2 * np.pi * np.logspace(2, -2, n_freq)
+    cols = (np.repeat(om, len(sig)), np.tile(sig, (n_freq, 1)), dz)
+    return tuple(torch.as_tensor(a, device=device) for a in cols)
+
+
+def _col_err(got, want, cols=slice(None)):
+    d = (got - want)[:, cols].abs().max(1).values
+    return float((d / want[:, cols].abs().max(1).values).max())
+
+
+@pytest.mark.parametrize("shape", [(11, 8, 97, 56), (12, 8, 77, 52)], ids=["dprism2d", "coprod2"])
+def test_mt1d_kernels_match_plain_at_the_benchmark_shapes(cuda_device, shape):
+    """The boundary fields' kernels at the cells' column counts (8,536
+    columns of n = 56; 7,392 of n = 52): e and h (above 1e-3 of a column's
+    largest), the vjp (on the earth layers) and the tangent (forward mode),
+    complex64, no less accurate against the complex128 plain version than
+    the complex64 plain version (twice its error plus 1e-5 of the column's
+    largest entry; the derivatives under the plain forward's cut); in
+    complex128, against the plain version to rounding (1e-7).  One launch
+    each."""
+    om64, sg64, dz64 = _mt1d_columns(*shape, cuda_device)
+    e, h, _ = TD.field_plain(om64, sg64, dz64)
+    keep = (e.abs() > 1e-3 * e.abs().max(1, keepdim=True).values) & \
+        (h.abs() > 1e-3 * h.abs().max(1, keepdim=True).values)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def draw(like):
+        return torch.randn(like.shape, dtype=like.dtype, device=cuda_device, generator=gen)
+
+    ge = torch.where(keep, draw(e), 0)
+    gh = torch.where(keep, draw(e), 0) / h.abs().max(1, keepdim=True).values
+    ds = draw(sg64) * sg64
+    ds[:, :7] = 0
+    earth = slice(7, None)
+    out = {}
+    for rdt in (torch.float64, torch.float32):
+        cdt = TD.MT1D_DTYPES[rdt]
+        om, sg, dz, d = (t.to(rdt) for t in (om64, sg64, dz64, ds))
+        g_e, g_h = ge.to(cdt), gh.to(cdt)
+        pe, ph, cut = TD.field_plain(om, sg, dz)
+        FF.reset_launches()
+        ke, kh, _ = TD.mt1d_field(om, sg, dz)
+        kv = TD.mt1d_field_vjp(om, sg, dz, cut, g_e, g_h)
+        kde, kdh = TD.mt1d_field_tangent(om, sg, dz, cut, d)
+        torch.cuda.synchronize()
+        assert FF.launches() == {**dict.fromkeys(FUSED, 0), "mt1d_field": 2,
+                                 "mt1d_field_vjp": 1}
+        out[rdt] = ((ke, kh, kv, kde, kdh),
+                    (pe, ph, TD.field_vjp_plain(om, sg, dz, cut, g_e, g_h))
+                    + TD.field_tangent_plain(om, sg, dz, cut, d))
+    kernel64, plain64 = out[torch.float64]
+    kernel32, plain32 = out[torch.float32]
+    cols = (slice(None), slice(None), earth, slice(None), slice(None))
+    for i, c in enumerate(cols):
+        m = keep if i != 2 else 1
+        assert _col_err(kernel64[i] * m, plain64[i] * m, c) < 1e-7, i
+        k, p = (x[i].to(plain64[i].dtype) * m for x in (kernel32, plain32))
+        t = plain64[i] * m
+        assert _col_err(k, t, c) <= 2 * _col_err(p, t, c) + 1e-5, i
+
+
+def test_mt1d_launch_checks(cuda_device):
+    """analytic_field on the card refuses an omega or a dz that requires
+    grad (the kernels differentiate with respect to sigma only); the
+    launches refuse a dtype, a shape or a device they do not take."""
+    om, sg, dz = _mt1d_columns(2, 1, 3, 56, cuda_device)
+    omega = om.reshape(-1, 1)[:2]
+    with pytest.raises(ValueError, match="sigma only"):
+        TD.analytic_field(omega.clone().requires_grad_(True), sg[:2], dz)
+    with pytest.raises(ValueError, match="sigma only"):
+        TD.analytic_field(omega, sg[:2], dz.clone().requires_grad_(True))
+    with pytest.raises(ValueError):
+        TD.mt1d_field(om.half(), sg.half(), dz.half())
+    with pytest.raises(ValueError):
+        TD.mt1d_field(om, sg[None], dz)
+    with pytest.raises(ValueError):
+        TD.mt1d_field(om, sg, dz.cpu())
+    with pytest.raises(ValueError):
+        TD.mt1d_field(om[:-1], sg, dz)
+
+
+def test_jv_on_card_runs_through_the_kernels(cuda_device):
+    """jv (torch.func.jvp through the forward model) on the card: the
+    boundary fields' forward and its tangent variant, the fused solve's
+    tangent solve on its sweeps; against the plain versions on the CPU."""
+    from hmcmt2d_tpu_torch.models.jacobian import jv
+
+    cfg = SolveConfig(torch.complex64, 6, "fused")
+    gpu, m0 = entry.flagship_problem(tiny=True, device=cuda_device, cfg=cfg)
+    cpu, _ = entry.flagship_problem(tiny=True, device="cpu", cfg=cfg)
+    rng = np.random.default_rng(5)
+    m = torch.as_tensor(m0 + 0.1 * rng.standard_normal(len(m0)), dtype=torch.float32)
+    v = torch.as_tensor(rng.standard_normal(len(m0)), dtype=torch.float32)
+    FF.reset_launches()
+    got = jv(gpu, m.to(cuda_device), v.to(cuda_device))
+    counts = FF.launches()
+    assert counts["mt1d_field"] == 2 and "mt1d_field_vjp" not in counts
+    # one factor; the forward and the tangent solve, 1 + 6 refinement steps each
+    assert counts["schur_factor"] == 1 and counts["bt_sweep_fwd"] == 14
+    assert relerr(got.cpu(), jv(cpu, m, v)) < 1e-3

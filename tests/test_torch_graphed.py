@@ -36,7 +36,7 @@ from hmcmt2d_tpu_torch.ops import fused_factor as FF  # noqa: E402
 from hmcmt2d_tpu_torch.ops import solver as S  # noqa: E402
 from hmcmt2d_tpu_torch.sampler import graphed as G  # noqa: E402
 from hmcmt2d_tpu_torch.sampler.driver import (BatchedSampler, make_factor_fn,  # noqa: E402
-                                              make_potential_vg)
+                                              make_potential_vg, no_stale_factor)
 from tests.torch_parity import (chain_models, emulated_capture, jax_problem_with,  # noqa: E402
                                 no_host_round_trip, problem_arrays, tensors)
 
@@ -190,20 +190,22 @@ def _on_card(method: str, inv: str = "lu"):
 @pytest.mark.parametrize("method,inv", ENGINES + [("fused", "lu")])
 def test_graphed_serves_every_engine_on_the_card(method, inv):
     """Every engine and inverse on a CUDA problem gets the graphs by
-    default, and with graphed=True; the sampler's factor is then the
-    graph's own, and graphed=False keeps the eager closure and factor.
-    graphed=True raises on a CPU problem, whose default is eager."""
+    default, and with graphed=True, and graphed=False keeps the eager
+    closure; either way the sampler's factor hook on the card makes no
+    stale factor (every eval fresh).  graphed=True raises on a CPU problem,
+    whose default is eager."""
     prob = _on_card(method, inv)
     for graphed in (None, True):
         vg = make_potential_vg(prob, 1.0, graphed=graphed)
         assert isinstance(vg, G.GraphedPotential) and vg.captures == {}
-        assert make_factor_fn(prob, vg) == vg.factor
+        assert make_factor_fn(prob, vg) is no_stale_factor
+    assert no_stale_factor(torch.zeros(2, 3)) is None
     eng = BatchedSampler(prob, 1.0, amortize=True)
     assert isinstance(eng.potential_vg, G.GraphedPotential)
-    assert eng.factor_fn == eng.potential_vg.factor and eng.release() == []
+    assert eng.factor_fn is no_stale_factor and eng.release() == []
     eager = BatchedSampler(prob, 1.0, amortize=True, graphed=False)
     assert not isinstance(eager.potential_vg, G.GraphedPotential)
-    assert eager.factor_fn == prob.factor_state and eager.release() == []
+    assert eager.factor_fn is no_stale_factor and eager.release() == []
     assert BatchedSampler(prob, 1.0, amortize=False).factor_fn is None
     cpu = types.SimpleNamespace(device=torch.device("cpu"), fwd=prob.fwd)
     with pytest.raises(ValueError, match="CUDA problem"):
