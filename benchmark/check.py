@@ -58,14 +58,23 @@ def sub_seed(seed: int, purpose: int) -> int:
     return (int(s[0]) << 31) ^ int(s[1])
 
 
-def shapes(phase, cfg: dict) -> dict:
-    """The real widths of the eval's systems, for operation and byte
-    counts: q unknowns a line, nzi lines, B systems, solves an eval."""
-    mesh = phase.problem.mesh
-    pcfg = phase.problem.fwd.cfg
-    return dict(q=mesh.ny - 1, nzi=mesh.nz - 1,
+def shapes(model: RF.Model, cfg: dict, mix: dict) -> dict:
+    """The systems an eval solves, for the readers' operation and byte
+    counts, from the model file and the cell's configured solve alone, so
+    that the program cannot move its own yardstick.
+
+    A mode's interior system has ``ny_i x nz_i`` unknowns.  Its least-work
+    block-tridiagonal ordering has lines of ``width`` unknowns, as many as
+    the shorter axis has, stacked along the longer axis: ``lines`` of them.
+    That is the least work of the systems, the same whichever ordering or
+    engine solves them.  ``B`` systems (chains x frequencies x two modes)
+    and ``solves_per_eval`` refined solves an eval (forward and adjoint,
+    1 + refine each)."""
+    ny_i, nz_i = model.ny - 1, model.nz - 1
+    solve = cfg["solve"] if mix["phase"] == "sample" else mix["engine"]
+    return dict(width=min(ny_i, nz_i), lines=max(ny_i, nz_i), ny_i=ny_i, nz_i=nz_i,
                 B=cfg["chains"] * len(cfg["freqs_hz"]) * 2,
-                solves_per_eval=2 * (1 + pcfg.refine_iters))
+                solves_per_eval=2 * (1 + solve["refine"]))
 
 
 def peak_rates(dev: torch.device) -> dict | None:

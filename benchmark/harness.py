@@ -385,7 +385,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
             factor_ms=span_ms["factor"], iterations=n_iter,
             profile=dict(profile_records(prof), evals=len(prof_span["eval"]),
                          factors=len(prof_span["factor"])),
-            shapes=CK.shapes(phase, cfg), peaks=CK.peak_rates(dev))
+            shapes=CK.shapes(inp.model, cfg, mix), peaks=CK.peak_rates(dev))
         del prof
 
     steps = torch.stack([it.steps for it in kept[first:first + n_iter]])
