@@ -514,6 +514,7 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
     if not solve["err_polish1"] <= solve["err_polish0"]:
         fail(f"polish = 1 solves worse than polish = 0: {solve}")
     check_edges(torch, d.device)
+    check_lines_y(torch, d.device)
     check_gj_edges(torch, d.device)
     return results
 
@@ -666,6 +667,36 @@ def check_edges(torch, dev):
         for name, rel in (("bt_sweep_fwd", y_rel), ("bt_sweep_bwd", x_rel)):
             if not rel <= SWEEP_REL_TOL:
                 fail(f"{name} at {(B, nzi, q)}: relative error {rel:.3e}")
+
+
+def check_lines_y(torch, dev):
+    """A mesh wider than the kernels' widest line (the wide COPROD2
+    profile's interior, 51 x 225, at C = 1: B = 24) factorised by
+    ``factorize`` on lines along y, refined six times against complex128
+    thomas, with the launches counted on those lines apart."""
+    from hmcmt2d_tpu_torch.ops import fused_factor as FF
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    d, oy, oz, v = random_system(torch, 24, 51, 225, SEED, dev)
+    sys_ = S.InteriorSystem(d.to(torch.complex128), oy.double(), oz.double())
+    b = v.to(torch.complex128)
+    torch.cuda.synchronize()
+    FF.reset_launches()
+    f = S.factorize(sys_, dtype=torch.complex64, method="fused")
+    x = S.refined_solve(sys_, f, b, iters=6)
+    torch.cuda.synchronize()
+    counts = FF.launches()
+    exact = S.factor_solve(S.factorize(sys_), b)
+    _, rel = rel_err(torch, x, exact)
+    say({"lines_y_shape": [24, 51, 225], "lines": f.fac.lines, "launches": counts,
+         "refined_rel_err": rel})
+    want = {"schur_factor": 1, "bt_sweep_fwd": 7, "bt_sweep_bwd": 7}
+    want.update({k + FF.LINES_Y: n for k, n in want.items()})
+    if f.fac.lines != "y" or counts != want:
+        fail(f"lines along y: {f.fac.lines}, launches {counts} != {want}")
+    if not rel <= 1e-12:
+        fail(f"refined solve on lines along y: relative error {rel:.3e}")
+    FF.reset_launches()
 
 
 def profile_eval(torch, vg, m, m_ref) -> dict:

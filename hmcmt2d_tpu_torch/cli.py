@@ -162,9 +162,12 @@ def cmd_run(args):
         if args.profile:
             from torch.profiler import ProfilerActivity, profile
 
+            from .ops import fused_factor as FF
+
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                              if dev.type == "cuda" else [])
             profiler = profile(activities=acts)
+            FF.reset_launches()
         with profiler as prof:
             run = run_inversion(cfg, mesh, sigma2d, data, obs, err,
                                 solve_cfg=solve_cfg, device=dev, device_mesh=dev_mesh,
@@ -179,6 +182,10 @@ def cmd_run(args):
             trace = os.path.join(args.profile, f"trace_rank{_rank()}.json")
             prof.export_chrome_trace(trace)
             print(f"[hmcmt2d] profiler trace written to {trace}", flush=True)
+            # the kernels inside a CUDA graph show in the trace under the
+            # graph's launch; their counts, those on lines along y apart
+            counts = {k: n for k, n in FF.launches().items() if n}
+            print(f"[hmcmt2d] kernel launches: {counts}", flush=True)
         if _rank() == 0:
             _write_outputs(args, cfg, run)
         return 0

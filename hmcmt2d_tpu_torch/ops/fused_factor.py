@@ -27,6 +27,11 @@ gj_inverse         ``inv_nopivot`` (XLA ops), ops/blockinv.py:41    operations
 thomas, thomas_blocked and bcr engines under ``inv_method="gj"``
 (``ops/solver.py``), on the CPU as on the GPU.
 
+A system whose lines along z are wider than ``Q_MAX`` is factorised with
+its lines along y instead, when those fit (:func:`line_axis`): the same
+kernels on the transposed system, counted apart as well
+(:func:`launches`, the ``*_lines_y`` keys).
+
 The TPU layout (split real/imaginary planes, q padded to 128, q-tight
 rows) existed because Pallas on a TPU has no complex type and tiles by
 (8, 128).  The kernels here take complex64 tensors as interleaved float2
@@ -291,6 +296,7 @@ def _launch_factor(diag, offy, offz, polish: int) -> torch.Tensor:
 
 schur_factor.launches = 0
 schur_factor.polish_launches = 0
+schur_factor.lines_y_launches = 0   # of its launches, those on lines along y
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +370,8 @@ def bt_sweep_bwd(G: torch.Tensor, offz: torch.Tensor,
 
 bt_sweep_fwd.launches = 0
 bt_sweep_bwd.launches = 0
+bt_sweep_fwd.lines_y_launches = 0
+bt_sweep_bwd.lines_y_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +462,7 @@ def _launch_gj(A: torch.Tensor) -> torch.Tensor:
 gj_inverse.launches = 0
 
 KERNELS = (schur_factor, bt_sweep_fwd, bt_sweep_bwd)
+LINES_Y = "_lines_y"   # the key suffix of the KERNELS' launches on lines along y
 # counted kernels off the fused factor and solve, which appear in launches()
 # only when nonzero: gj_inverse, and those that register()
 _OPTIONAL = {"gj_inverse": gj_inverse}
@@ -469,6 +478,8 @@ def register(wrapper) -> None:
 def reset_launches() -> None:
     for k in KERNELS + tuple(_OPTIONAL.values()):
         k.launches = 0
+    for k in KERNELS:
+        k.lines_y_launches = 0
     schur_factor.polish_launches = 0
 
 
@@ -478,10 +489,15 @@ def launches() -> dict[str, int]:
     (``schur_factor_polish``), the engines' ``gj_inverse`` and the
     registered kernels (the boundary fields' ``mt1d_field`` and
     ``mt1d_field_vjp``) count apart, and appear only when nonzero, so a
-    path that runs none of them keeps the three keys."""
+    path that runs none of them keeps the three keys.  So do the fused
+    kernels' launches on lines along y (``schur_factor_lines_y``,
+    ``bt_sweep_fwd_lines_y``, ``bt_sweep_bwd_lines_y``), which the
+    kernels' own counts include."""
     out = {k.__name__: k.launches for k in KERNELS}
     if schur_factor.polish_launches:
         out["schur_factor_polish"] = schur_factor.polish_launches
+    out.update((k.__name__ + LINES_Y, k.lines_y_launches) for k in KERNELS
+               if k.lines_y_launches)
     out.update((name, k.launches) for name, k in _OPTIONAL.items() if k.launches)
     return out
 
@@ -502,6 +518,8 @@ def add_launches(delta: dict[str, int]) -> None:
     for name, n in delta.items():
         if name == "schur_factor_polish":
             schur_factor.polish_launches += n
+        elif name.endswith(LINES_Y):
+            by_name[name.removesuffix(LINES_Y)].lines_y_launches += n
         else:
             by_name[name].launches += n
 
@@ -511,11 +529,41 @@ def add_launches(delta: dict[str, int]) -> None:
 # ---------------------------------------------------------------------------
 
 class FusedFactor(NamedTuple):
-    """Factors of the fused engine for a batch of systems collapsed to B."""
+    """Factors of the fused engine for a batch of systems collapsed to B.
+    ``lines`` is the axis its lines run along (:func:`line_axis`): "z",
+    or "y" for the factor of the transposed system, in whose layout ``G``
+    and ``offz`` lie (:func:`fused_bt_solve` takes the right-hand side in
+    that layout too)."""
 
     G: torch.Tensor      # (B, nzi, q, q) complex64 inverse Schur complements
     offz: torch.Tensor   # (B, nzi-1, q) float32 z-coupling
     batch: torch.Size    # the leading batch shape that was collapsed
+    lines: str = "z"
+
+
+def line_axis(nzi: int, nyi: int) -> str:
+    """The axis along which the fused engine lays the lines of an nzi x
+    nyi interior system: "z" (lines of nyi unknowns, one per z-row) while
+    they fit the kernels, else "y" (lines of nzi unknowns, the system
+    transposed) where those fit; a system too wide both ways raises."""
+    if nyi <= Q_MAX:
+        return "z"
+    if nzi <= Q_MAX:
+        return "y"
+    raise ValueError(f"the fused engine needs lines of at most {Q_MAX} unknowns along "
+                     f"one axis: ny_i = {nyi} (lines along z) and nz_i = {nzi} "
+                     f"(lines along y) are both wider")
+
+
+def _counted(kernel, lines: str, *args) -> torch.Tensor:
+    """``kernel(*args)``, its launches counted on lines along y too when
+    ``lines`` is "y" (whatever raised ``kernel.launches``: the kernel, or a
+    test's count of its plain version)."""
+    before = kernel.launches
+    out = kernel(*args)
+    if lines == "y":
+        kernel.lines_y_launches += kernel.launches - before
+    return out
 
 
 def flatten_system(diag: torch.Tensor, offy: torch.Tensor, offz: torch.Tensor):
@@ -536,23 +584,28 @@ def flatten_system(diag: torch.Tensor, offy: torch.Tensor, offz: torch.Tensor):
 
 
 def fused_schur_factor(diag: torch.Tensor, offy: torch.Tensor,
-                       offz: torch.Tensor, polish: int = 0) -> FusedFactor:
+                       offz: torch.Tensor, polish: int = 0,
+                       lines: str = "z") -> FusedFactor:
     """Factorise an (equilibrated) interior system with leading batch axes
     that broadcast together; complex64 factors, float32 couplings;
-    ``polish`` Newton-Schulz steps a line (0 on the main path)."""
+    ``polish`` Newton-Schulz steps a line (0 on the main path).  The
+    system is given in the layout of its lines: ``lines`` "y" says that it
+    is a system transposed (``ops/solver.py`` does that), which changes
+    nothing here but the counts and the factor's record."""
     q = diag.shape[-1]
     if q > Q_MAX:
         raise ValueError(f"fused factor supports q <= {Q_MAX}, got {q}")
     d, oy, oz, batch = flatten_system(diag, offy, offz)
-    return FusedFactor(schur_factor(d, oy, oz, polish), oz, batch)
+    return FusedFactor(_counted(schur_factor, lines, d, oy, oz, polish), oz, batch, lines)
 
 
 def fused_bt_solve(fac: FusedFactor, b: torch.Tensor) -> torch.Tensor:
     """Solve with fused factors; ``b`` is (..., nzi, q) with the factor's
-    batch shape.  Complex-symmetric, so also the transpose solve."""
+    batch shape, in the factor's layout.  Complex-symmetric, so also the
+    transpose solve."""
     tail = b.shape[-2:]
     v = b.expand(fac.batch + tail).reshape((-1,) + tail)
     v = v.to(torch.complex64).resolve_conj().contiguous()
-    y = bt_sweep_fwd(fac.G, fac.offz, v)
-    x = bt_sweep_bwd(fac.G, fac.offz, y)
+    y = _counted(bt_sweep_fwd, fac.lines, fac.G, fac.offz, v)
+    x = _counted(bt_sweep_bwd, fac.lines, fac.G, fac.offz, y)
     return x.reshape(fac.batch + tail).to(b.dtype)

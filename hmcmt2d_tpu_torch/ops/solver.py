@@ -18,7 +18,11 @@ Four engines (``factorize(method=...)``):
   inverses and matrix products;
 * ``"fused"``: the hand-written CUDA kernels of :mod:`.fused_factor` on a
   complex64 factor, with iterative refinement against the matrix-free
-  operator (the production setting on the GPU).
+  operator (the production setting on the GPU).  Its lines run along z
+  while they fit the kernels (ny_i <= ``Q_MAX``); a wider mesh is
+  factorised transposed, its lines along y (:func:`.fused_factor.
+  line_axis`), and each right-hand side is transposed into that layout
+  and its solution back.
 
 thomas, thomas_blocked and bcr invert their blocks with LU
 (:func:`lu_inverse`, ``inv_method="lu"``) or by unpivoted Gauss-Jordan
@@ -36,7 +40,8 @@ from typing import NamedTuple
 import torch
 
 from .. import mesh as M
-from .fused_factor import FusedFactor, fused_bt_solve, fused_schur_factor, gj_inverse
+from .fused_factor import (FusedFactor, fused_bt_solve, fused_schur_factor, gj_inverse,
+                           line_axis)
 
 REAL_DTYPE = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
@@ -478,12 +483,20 @@ def uses_kernels(method: str, inv_method: str) -> bool:
     return method == "fused" or inv_method == "gj"
 
 
+def transposed(sys: InteriorSystem) -> InteriorSystem:
+    """The system with its unknowns ordered z-fastest, as block-tridiagonal
+    over y-lines: the within-line coupling is the z-coupling, the
+    between-line coupling the y-coupling."""
+    return InteriorSystem(sys.diag.mT, sys.offz.mT, sys.offy.mT)
+
+
 def factorize(sys: InteriorSystem, dtype=None, method: str = "thomas",
               inv_method: str = "lu") -> Factorization:
     """Equilibrate ``sys``, cast it to ``dtype`` and factorise it with the
     engine ``method``, whose blocks are inverted by ``inv_method`` (the
-    fused engine inverts in its own kernel).  An unknown name raises: no
-    engine falls back to another."""
+    fused engine inverts in its own kernel, on the lines that
+    :func:`.fused_factor.line_axis` picks from the system's shape).  An
+    unknown name raises: no engine falls back to another."""
     if method not in FACTOR_FN and method != "fused":
         raise ValueError(f"unknown solver method {method!r}")
     if inv_method not in INV_FN:
@@ -494,16 +507,26 @@ def factorize(sys: InteriorSystem, dtype=None, method: str = "thomas",
         ssys = InteriorSystem(ssys.diag.to(dtype), ssys.offy.to(rdt),
                               ssys.offz.to(rdt))
     if method == "fused":
-        fac = fused_schur_factor(*ssys)
+        lines = line_axis(*ssys.diag.shape[-2:])
+        fac = fused_schur_factor(*(transposed(ssys) if lines == "y" else ssys), lines=lines)
     else:
         fac = FACTOR_FN[method](ssys, inv_fn=INV_FN[inv_method])
     return Factorization(fac, s)
 
 
 def _fused_solve(fac: FusedFactor, b: torch.Tensor) -> torch.Tensor:
-    """``fused_bt_solve`` for a b whose batch may be wider than the
-    factor's: the kernels take one G per system, so right-hand sides that
-    share a factor are swept one index of the wide axes at a time."""
+    """``fused_bt_solve`` for a b (..., nzi, nyi) whose batch may be wider
+    than the factor's: the kernels take one G per system, so right-hand
+    sides that share a factor are swept one index of the wide axes at a
+    time.  A factor of lines along y takes b transposed and gives x back
+    in b's layout."""
+    if fac.lines == "y":
+        return _fused_sweeps(fac, b.mT).mT
+    return _fused_sweeps(fac, b)
+
+
+def _fused_sweeps(fac: FusedFactor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_fused_solve` on a b in the factor's layout."""
     wide = rhs_axes(fac.batch, b)
     if not wide:
         return fused_bt_solve(fac, b)

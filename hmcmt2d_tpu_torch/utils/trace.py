@@ -16,7 +16,12 @@ The spans lie in ``sampler/hmc.py`` (``hmc.iteration``, ``hmc.draw``,
 inside them ``.load``, ``.launch``, ``.clone``, ``.capture``) and the
 Gauss-Newton mass's build (``gn.jacobian``, ``gn.host``); the README's
 ``--profile`` paragraph says what each covers.  Nothing a CUDA graph
-captures holds a span: ``models/``, ``ops/`` and ``csrc/`` have none.
+captures holds a span: ``models/``, ``ops/`` and ``csrc/`` have none.  So
+what the graph decides inside itself shows in no span, such as the axis
+along which the fused engine lays a system's lines (z, or y on a mesh
+wider than the kernels' widest line); the launch counts carry that
+(``ops/fused_factor.py`` ``launches()``, its ``*_lines_y`` keys, which
+``cli.py --profile`` prints).
 """
 
 from __future__ import annotations

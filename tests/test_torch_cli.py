@@ -181,6 +181,8 @@ def test_single_process_run_with_shard_flags(startup, tmp_path, capsys, flags, w
     assert "device mesh" not in log
     assert all(p.exists() for p in _files(tmp_path, 2))
     assert (prof / "trace_rank0.json").stat().st_size > 0
+    # the plain versions the CPU runs count no launch
+    assert "[hmcmt2d] kernel launches: {}" in log
 
 
 def _two_ranks(startup, out, chains):

@@ -56,7 +56,9 @@ def _system(B, nzi, q, seed):
     (2, 3, 33, 7), (2, 3, 65, 8), (2, 3, 97, 9),
     # odd q and odd B nzi: the last line of G starts on a 16-byte boundary,
     # so the forward sweep's aligned span around it would end past G
-    (1, 1, 95, 10), (3, 5, 75, 11)])
+    (1, 1, 95, 10), (3, 5, 75, 11),
+    # the wide COPROD2 profile on lines along y: 225 lines of 51, B = 192
+    (192, 225, 51, 12)])
 def test_kernels_match_plain(cuda_device, B, nzi, q, seed):
     d, oy, oz, b = (t.to(cuda_device) for t in _system(B, nzi, q, seed))
     FF.reset_launches()
@@ -124,6 +126,81 @@ def test_single_mode_fused_eval_launches(cuda_device):
     assert relerr(U.cpu(), Uc) < 1e-4
     g, gc = g.cpu().double(), gc.double()
     assert float(((g * gc).sum(-1) / (g.norm(dim=-1) * gc.norm(dim=-1))).min()) > 0.9999
+
+
+def _wide_system(B, nzi, nyi, seed, device):
+    """Random diagonally dominant complex128 interior systems of nzi x nyi
+    unknowns (the wide COPROD2 profile's is 51 x 225) and a right-hand
+    side, on ``device``."""
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn((B,) + shape, generator=gen, dtype=torch.float64)
+
+    sys_ = S.InteriorSystem(torch.complex(4 + 0.1 * r(nzi, nyi), 0.5 * r(nzi, nyi)),
+                            1 + 0.1 * r(nzi, nyi - 1), 1 + 0.1 * r(nzi - 1, nyi))
+    b = torch.complex(r(nzi, nyi), r(nzi, nyi))
+    return S.InteriorSystem(*(t.to(device) for t in sys_)), b.to(device)
+
+
+def test_y_line_factor_and_refined_solve_at_the_wide_profile(cuda_device):
+    """B = 192 systems of 51 x 225 (the wide COPROD2 cell's): the fused
+    factor takes lines along y (225 lines of 51 in the 64-wide tile) and,
+    refined six times against the complex128 operator, solves them as
+    complex128 thomas does (LU inverses of 225-wide z-line blocks) to
+    complex128 rounding; unrefined, to complex64's.  One factor launch and
+    seven sweep pairs, all counted on lines along y."""
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    sys_, b = _wide_system(192, 51, 225, 12, cuda_device)
+    FF.reset_launches()
+    f = S.factorize(sys_, dtype=torch.complex64, method="fused")
+    x = S.refined_solve(sys_, f, b, iters=6)
+    x0 = S.factor_solve(f, b)
+    torch.cuda.synchronize()
+    counts = {"schur_factor": 1, "bt_sweep_fwd": 8, "bt_sweep_bwd": 8}
+    assert FF.launches() == {**counts, **{k + FF.LINES_Y: n for k, n in counts.items()}}
+    assert f.fac.lines == "y" and tuple(f.fac.G.shape) == (192, 225, 51, 51)
+    exact = S.factor_solve(S.factorize(sys_), b)
+    assert float((x - exact).norm() / exact.norm()) < 1e-12
+    assert float((x0 - exact).norm() / exact.norm()) < 1e-5
+    FF.reset_launches()
+
+
+def test_graphed_y_line_eval_replays_its_capture_launches(cuda_device):
+    """The coprod2_full.sample cell's eval (C = 8, 12 frequencies, 225 x 51
+    interiors), served by the graphed potential: each replay counts the
+    launches its capture recorded, one factor and 14 sweep pairs on lines
+    along y beside the boundary fields' two, and equals the eager eval."""
+    from pathlib import Path
+
+    from benchmark import harness
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = harness.load(root, "configs", "coprod2_full")
+    inp = harness.make_inputs(root, cfg, 1, cuda_device)
+    problem, _ = harness.build_problem(root, cfg, inp, cfg["solve"], cuda_device)
+    vg = make_potential_vg(problem, cfg["smoothparameter"])
+    eager = make_potential_vg(problem, cfg["smoothparameter"], graphed=False)
+    m = inp.m_start
+    m_ref = m.roll(1, 0)    # another chain's start: a prior term of each chain
+    FF.reset_launches()
+    out = vg(m, m_ref)
+    per_eval = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+    per_eval.update({k + FF.LINES_Y: n for k, n in per_eval.items()}, **MT1D)
+    assert FF.launches() == per_eval
+    (cap,) = vg.captures.values()
+    assert cap.launches == per_eval
+    for k in (2, 3):
+        vg(m, m_ref)
+        assert FF.launches() == {name: k * n for name, n in per_eval.items()}
+    want = _flat(eager(m, m_ref))
+    for a, b in zip(_flat(out), want):
+        assert relerr(a.double(), b.double()) < 1e-5
+    vg.release()
+    FF.reset_launches()
 
 
 def test_launch_checks(cuda_device):
