@@ -17,10 +17,13 @@ Phases, each of which exits non-zero on failure:
 
 1. the card's name and power limit (nvidia-smi); TF32 off;
 2. build the CUDA kernels from ``hmcmt2d_tpu_torch/csrc``;
-3. each kernel against its plain PyTorch version at the shapes of the main
-   path (the equilibrated flagship operator at C = 8 chains: B = 176 systems,
-   nzi = 55 z-lines, q = 95), with times, the card's bound for the same
-   work, its share of that bound, and a library yardstick (the factor bit
+3. each kernel against its plain PyTorch version on the equilibrated
+   flagship operator at C = 8 chains (B = 176 systems of 55 x 95), in the
+   layout the main path gives it: the fused factor and sweeps on lines along
+   y (95 lines of 55, the system transposed), ``gj_inverse`` at the blocks
+   of the thomas and bcr engines' z-lines (55 lines of 95); with times, the
+   card's bound for the same work, its share of that bound, and a library
+   yardstick (the factor bit
    for bit); the factor's Newton-Schulz variant (polish = 1) too, and the
    unrefined solve error of polish 0 and 1 against complex128 thomas on
    that operator; then all three, which are compiled per padded width, at
@@ -182,10 +185,12 @@ U_REL_TOL = 1e-3       # fused complex64 vs complex128 potential (see phase 4)
 # samples of L = 4 amplify little
 MODEL_REL_TOL_5 = 1e-5
 GRAD_COS_MIN = 0.999
-# (B, nzi, q): the coprod2 width, Q_MAX, more blocks than two waves, and
+# (B, nzi, q): coprod2's z-line width, Q_MAX, more blocks than two waves,
 # odd q with odd B nzi (the 16-byte span around G's last line would end
-# past G)
-EDGE_SHAPES = ((4, 6, 75), (3, 4, 128), (300, 2, 32), (1, 1, 95), (3, 5, 75))
+# past G), and the 64-wide tile the main path runs: its first and last
+# widths, and coprod2's y-line width with odd B nzi
+EDGE_SHAPES = ((4, 6, 75), (3, 4, 128), (300, 2, 32), (1, 1, 95), (3, 5, 75),
+               (2, 3, 33), (4, 6, 64), (3, 5, 51))
 
 # Published peaks (NVIDIA data sheets, dense, no sparsity), by the name
 # torch reports: the arithmetic rate, and device-memory bandwidth.  The
@@ -267,8 +272,10 @@ def interior_at(problem, m):
 
 def flagship_system(problem, m):
     """The equilibrated complex64 interior system of the merged TE+TM solve
-    at model m (C, P), flattened to (B, nzi, q): the factor's input on the
-    main path (ops/solver.py factorize)."""
+    at model m (C, P), flattened to (B, nzi, q): its lines along z, the
+    block layout of the thomas and bcr engines (ops/solver.py factorize;
+    the fused engine on the main path factorises it transposed, on lines
+    along y, where ny_i > nz_i)."""
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
     from hmcmt2d_tpu_torch.ops import solver as S
 
@@ -401,15 +408,22 @@ LAUNCHES_PER_EVAL_3 = {"schur_factor": 1, "schur_factor_polish": 0, "mt1d_field"
 
 
 def check_kernels(torch, problem, m, flops_peak, bw_peak):
-    """Phase 3: every kernel against its plain version at main-path shapes;
-    ``gj_inverse`` at the blocks the thomas and bcr engines invert; the
-    boundary fields' kernels at the main path's columns."""
+    """Phase 3: every kernel against its plain version at main-path shapes:
+    the fused factor and sweeps on the flagship system in the layout of the
+    lines ``factorize(method="fused")`` lays (``fused_factor.line_axis``:
+    along y, the system transposed); ``gj_inverse`` at the blocks the
+    thomas and bcr engines invert, on z-lines; the boundary fields' kernels
+    at the main path's columns."""
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
     from hmcmt2d_tpu_torch.ops import solver as S
 
-    d, oy, oz = flagship_system(problem, m)
+    dz, oyz, ozz = flagship_system(problem, m)
+    lines = FF.line_axis(*dz.shape[1:])
+    if lines != "y":
+        fail(f"the flagship's {tuple(dz.shape[1:])} interiors take lines along {lines}, not y")
+    d, oy, oz = FF.flatten_system(*S.transposed(S.InteriorSystem(dz, oyz, ozz)))[:3]
     B, nzi, q = d.shape
-    say(f"[kernels] flagship system B={B} nzi={nzi} q={q}")
+    say(f"[kernels] flagship system B={B}, lines along {lines}: {nzi} lines of q={q}")
     results = {}
 
     # schur_factor
@@ -423,8 +437,9 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
         fail(f"schur_factor is not bit-equal to its plain version: max abs error {abs_e:.3e}")
     flops = 8.0 * q ** 3 * nzi * B
     nbytes = B * nzi * (8 * q + 4 * (q - 1) + 8 * q * q) + 4 * B * (nzi - 1) * q
+    shape = dict(shape=[B, nzi, q], lines=lines)
     results["schur_factor"] = dict(
-        rel=rel_e, abs=abs_e, tol=FACTOR_REL_TOL,
+        shape, rel=rel_e, abs=abs_e, tol=FACTOR_REL_TOL,
         kernel_ms=time_ms(torch, lambda: FF.schur_factor(d, oy, oz), 10),
         plain_ms=time_ms(torch, lambda: FF.schur_factor_plain(d, oy, oz), 5),
         library_ms=time_ms(torch, lambda: S.bt_factor(S.InteriorSystem(d, oy, oz)), 10),
@@ -442,7 +457,7 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
     abs_e, rel_e = rel_err(torch, G1, G1_plain)
     del G1, G1_plain
     results["schur_factor_polish"] = dict(
-        rel=rel_e, abs=abs_e, tol=POLISH_REL_TOL,
+        shape, rel=rel_e, abs=abs_e, tol=POLISH_REL_TOL,
         kernel_ms=time_ms(torch, lambda: FF.schur_factor(d, oy, oz, polish=1), 5),
         plain_ms=time_ms(torch, lambda: FF.schur_factor_plain(d, oy, oz, polish=1), 2),
         library_ms=None, library="none: no single PyTorch call computes it",
@@ -468,7 +483,7 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
              nzi - 1)):
         abs_e, rel_e = rel_err(torch, got, want)
         results[name] = dict(
-            rel=rel_e, abs=abs_e, tol=SWEEP_REL_TOL,
+            shape, rel=rel_e, abs=abs_e, tol=SWEEP_REL_TOL,
             kernel_ms=time_ms(torch, lambda k=kern, a=arg: k(G, oz, a), 10),
             plain_ms=time_ms(torch, lambda p=plain, a=arg: p(G, oz, a), 10),
             library_ms=None, library="none: no single PyTorch call computes it",
@@ -476,7 +491,7 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
             bound_formula=f"max(8 q^2 {lines} B / fp32 peak, (G lines read + offz "
                           "+ rhs + out bytes) / bandwidth)")
 
-    gj = check_gj_inverse(torch, d, oy, oz)
+    gj = check_gj_inverse(torch, dz, oyz, ozz)
     results["gj_inverse"] = dict(gj.pop("complex64_thomas_line"), variants=gj)
     results.update(check_mt1d(torch, problem, m))
 
@@ -496,7 +511,8 @@ def check_kernels(torch, problem, m, flops_peak, bw_peak):
                  "achieved_TFLOPs": r["flops"] / r["kernel_ms"] / 1e9,
                  "library_ms": r["library_ms"], "library": r["library"]})
             continue
-        say({"kernel": name, "max_rel_err": r["rel"], "max_abs_err": r["abs"],
+        say({"kernel": name, "shape": r.get("shape"), "lines": r.get("lines"),
+             "max_rel_err": r["rel"], "max_abs_err": r["abs"],
              "rel_tol": r["tol"], "kernel_ms": r["kernel_ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "share_of_bound": r["share_of_bound"],
@@ -673,7 +689,9 @@ def check_lines_y(torch, dev):
     """A mesh wider than the kernels' widest line (the wide COPROD2
     profile's interior, 51 x 225, at C = 1: B = 24) factorised by
     ``factorize`` on lines along y, refined six times against complex128
-    thomas, with the launches counted on those lines apart."""
+    thomas, with the launches counted on those lines apart; its factor and
+    one pair of sweeps against their plain versions on the same transposed
+    inputs."""
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
     from hmcmt2d_tpu_torch.ops import solver as S
 
@@ -688,14 +706,24 @@ def check_lines_y(torch, dev):
     counts = FF.launches()
     exact = S.factor_solve(S.factorize(sys_), b)
     _, rel = rel_err(torch, x, exact)
+    td, toy, toz = FF.flatten_system(*S.transposed(S.equilibrate(sys_)[0]))[:3]
+    _, g_rel = rel_err(torch, f.fac.G, FF.schur_factor_plain(td, toy, toz))
+    vt = v.mT.contiguous()
+    y = FF.bt_sweep_fwd(f.fac.G, f.fac.offz, vt)
+    _, y_rel = rel_err(torch, y, FF.bt_sweep_fwd_plain(f.fac.G, f.fac.offz, vt))
+    _, x_rel = rel_err(torch, FF.bt_sweep_bwd(f.fac.G, f.fac.offz, y),
+                       FF.bt_sweep_bwd_plain(f.fac.G, f.fac.offz, y))
     say({"lines_y_shape": [24, 51, 225], "lines": f.fac.lines, "launches": counts,
-         "refined_rel_err": rel})
-    want = {"schur_factor": 1, "bt_sweep_fwd": 7, "bt_sweep_bwd": 7}
-    want.update({k + FF.LINES_Y: n for k, n in want.items()})
+         "refined_rel_err": rel, "schur_factor_rel_err": g_rel,
+         "bt_sweep_fwd_rel_err": y_rel, "bt_sweep_bwd_rel_err": x_rel})
+    want = FF.on_lines_y({"schur_factor": 1, "bt_sweep_fwd": 7, "bt_sweep_bwd": 7})
     if f.fac.lines != "y" or counts != want:
         fail(f"lines along y: {f.fac.lines}, launches {counts} != {want}")
     if not rel <= 1e-12:
         fail(f"refined solve on lines along y: relative error {rel:.3e}")
+    if not (g_rel <= FACTOR_REL_TOL and y_rel <= SWEEP_REL_TOL and x_rel <= SWEEP_REL_TOL):
+        fail(f"lines along y against the plain versions: factor {g_rel:.3e}, "
+             f"sweeps {y_rel:.3e} {x_rel:.3e}")
     FF.reset_launches()
 
 
@@ -744,7 +772,13 @@ def profile_eval(torch, vg, m, m_ref) -> dict:
 GRAPH_TIMED_EVALS = 20
 # the boundary fields' kernels (ops/mt1d.py): a forward and a vjp a gradient eval
 MT1D_PER_EVAL = {"mt1d_field": 1, "mt1d_field_vjp": 1}
-EVAL_PER_REPLAY = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14, **MT1D_PER_EVAL}
+# the fused launches of a two-mode gradient eval on the flagship, whose 55 x
+# 95 interiors take lines along y (the least work, fused_factor.line_axis),
+# so each counts again under its *_lines_y key
+FUSED_PER_EVAL = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+EVAL_PER_REPLAY = {**FUSED_PER_EVAL, **{k + "_lines_y": n for k, n in FUSED_PER_EVAL.items()},
+                   **MT1D_PER_EVAL}
+
 OUTPUT_NAMES = ("U", "misfit", "mnorm", "pred", "grad")
 
 
@@ -1598,8 +1632,7 @@ def check_sharded_cli(problem, m0, smi):
 
 # phase 9
 SINGLE_MODE_SURVEYS = ((("ZXY", "TZY"), "Impedance_Tipper"), (("RhoYX", "PhsYX"), "Rho_Phs"))
-SINGLE_MODE_LAUNCHES = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14,
-                        **MT1D_PER_EVAL}
+SINGLE_MODE_LAUNCHES = EVAL_PER_REPLAY   # the same mesh, so the same lines
 
 
 def check_single_mode(torch, m, m_ref, eval_ms_phase4, smi):
@@ -2695,11 +2728,10 @@ def window_launch_check(tag: str, w, init_eval: bool) -> dict:
     """The timed window ``w`` of ``bench._measure``: its batched evals (one
     a leapfrog step, the chains of an iteration sharing L, and with
     ``init_eval`` the start model's, a window without warmup) each launched
-    (1, 14, 14) and the boundary fields' forward and vjp once, and no
-    other kernel.  Returns its summary."""
+    (1, 14, 14) on lines along y and the boundary fields' forward and vjp
+    once, and no other kernel.  Returns its summary."""
     evals = int(w.result.lf_steps[:, 0].sum()) + int(init_eval)
-    want = {"schur_factor": evals, "bt_sweep_fwd": 14 * evals,
-            "bt_sweep_bwd": 14 * evals, "mt1d_field": evals, "mt1d_field_vjp": evals}
+    want = {k: evals * n for k, n in EVAL_PER_REPLAY.items()}
     got = {k: n for k, n in w.launches.items() if n or k in want}
     if got != want or evals == 0:
         fail(f"bench {tag}: window launches {w.launches} != {want} for {evals} evals")
@@ -2880,7 +2912,7 @@ def main() -> None:
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = FF.launches()
     say({"main_path_launches": counts})
-    want = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14, **MT1D_PER_EVAL}
+    want = EVAL_PER_REPLAY
     if counts != want:
         fail(f"launch counts {counts} != expected {want}")
     if not (torch.isfinite(U).all() and torch.isfinite(g).all()):
@@ -3030,7 +3062,7 @@ def main() -> None:
     kernels = []
     for k, r in kres.items():
         entry = {"name": k, "route": "cuda", "source": source[k], "replaces": replaces[k],
-                 "max_abs_err": r["abs"], "max_rel_err": r["rel"],
+                 "shape": r.get("shape"), "lines": r.get("lines"), "max_abs_err": r["abs"], "max_rel_err": r["rel"],
                  "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "share_of_bound": r["share_of_bound"], "library_ms": r["library_ms"]}

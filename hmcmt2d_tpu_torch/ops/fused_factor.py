@@ -27,10 +27,11 @@ gj_inverse         ``inv_nopivot`` (XLA ops), ops/blockinv.py:41    operations
 thomas, thomas_blocked and bcr engines under ``inv_method="gj"``
 (``ops/solver.py``), on the CPU as on the GPU.
 
-A system whose lines along z are wider than ``Q_MAX`` is factorised with
-its lines along y instead, when those fit (:func:`line_axis`): the same
-kernels on the transposed system, counted apart as well
-(:func:`launches`, the ``*_lines_y`` keys).
+Each system is factorised in its ordering of least work
+(:func:`line_axis`): its lines along the longer axis, min(ny_i, nz_i)
+unknowns wide.  Where that is along y, the same kernels run on the
+transposed system, their launches counted apart as well (:func:`launches`,
+the ``*_lines_y`` keys).
 
 The TPU layout (split real/imaginary planes, q padded to 128, q-tight
 rows) existed because Pallas on a TPU has no complex type and tiles by
@@ -502,6 +503,14 @@ def launches() -> dict[str, int]:
     return out
 
 
+def on_lines_y(counts: dict[str, int]) -> dict[str, int]:
+    """``counts`` with the KERNELS' launches in it counted again under their
+    ``*_lines_y`` keys: what :func:`launches` reads of a path whose fused
+    factors all lie along y."""
+    names = {k.__name__ for k in KERNELS}
+    return {**counts, **{k + LINES_Y: n for k, n in counts.items() if k in names}}
+
+
 def launch_delta(before: dict[str, int], after: dict[str, int]) -> dict[str, int]:
     """``after - before`` for each kernel of two :func:`launches` readings
     (a key missing from one reads 0 there)."""
@@ -530,10 +539,10 @@ def add_launches(delta: dict[str, int]) -> None:
 
 class FusedFactor(NamedTuple):
     """Factors of the fused engine for a batch of systems collapsed to B.
-    ``lines`` is the axis its lines run along (:func:`line_axis`): "z",
-    or "y" for the factor of the transposed system, in whose layout ``G``
-    and ``offz`` lie (:func:`fused_bt_solve` takes the right-hand side in
-    that layout too)."""
+    ``lines`` is the axis its lines run along (:func:`line_axis`, the
+    system's longer axis): "z", or "y" for the factor of the transposed
+    system, in whose layout ``G`` and ``offz`` lie (:func:`fused_bt_solve`
+    takes the right-hand side in that layout too)."""
 
     G: torch.Tensor      # (B, nzi, q, q) complex64 inverse Schur complements
     offz: torch.Tensor   # (B, nzi-1, q) float32 z-coupling
@@ -543,16 +552,18 @@ class FusedFactor(NamedTuple):
 
 def line_axis(nzi: int, nyi: int) -> str:
     """The axis along which the fused engine lays the lines of an nzi x
-    nyi interior system: "z" (lines of nyi unknowns, one per z-row) while
-    they fit the kernels, else "y" (lines of nzi unknowns, the system
-    transposed) where those fit; a system too wide both ways raises."""
-    if nyi <= Q_MAX:
-        return "z"
-    if nzi <= Q_MAX:
-        return "y"
-    raise ValueError(f"the fused engine needs lines of at most {Q_MAX} unknowns along "
-                     f"one axis: ny_i = {nyi} (lines along z) and nz_i = {nzi} "
-                     f"(lines along y) are both wider")
+    nyi interior system: the ordering of least work, its lines along the
+    longer axis so that each holds min(nzi, nyi) unknowns.  "z" (lines of
+    nyi unknowns, one per z-row) when nyi <= nzi, ties included; else "y"
+    (lines of nzi unknowns, the system transposed).  The factor's
+    operations go as lines x width^3 and its sweeps' bytes as lines x
+    width^2, and a narrower line runs in a narrower tile.  A system whose
+    shorter side is wider than ``Q_MAX`` raises."""
+    if min(nzi, nyi) > Q_MAX:
+        raise ValueError(f"the fused engine needs lines of at most {Q_MAX} unknowns along "
+                         f"one axis: ny_i = {nyi} (lines along z) and nz_i = {nzi} "
+                         f"(lines along y) are both wider")
+    return "z" if nyi <= nzi else "y"
 
 
 def _counted(kernel, lines: str, *args) -> torch.Tensor:

@@ -18,11 +18,11 @@ Four engines (``factorize(method=...)``):
   inverses and matrix products;
 * ``"fused"``: the hand-written CUDA kernels of :mod:`.fused_factor` on a
   complex64 factor, with iterative refinement against the matrix-free
-  operator (the production setting on the GPU).  Its lines run along z
-  while they fit the kernels (ny_i <= ``Q_MAX``); a wider mesh is
-  factorised transposed, its lines along y (:func:`.fused_factor.
-  line_axis`), and each right-hand side is transposed into that layout
-  and its solution back.
+  operator (the production setting on the GPU).  Its lines run along the
+  system's longer axis, each of min(ny_i, nz_i) unknowns, the ordering of
+  least work (:func:`.fused_factor.line_axis`): along z when ny_i <= nz_i,
+  else along y, where the system is factorised transposed and each
+  right-hand side is transposed into that layout and its solution back.
 
 thomas, thomas_blocked and bcr invert their blocks with LU
 (:func:`lu_inverse`, ``inv_method="lu"``) or by unpivoted Gauss-Jordan
@@ -494,9 +494,10 @@ def factorize(sys: InteriorSystem, dtype=None, method: str = "thomas",
               inv_method: str = "lu") -> Factorization:
     """Equilibrate ``sys``, cast it to ``dtype`` and factorise it with the
     engine ``method``, whose blocks are inverted by ``inv_method`` (the
-    fused engine inverts in its own kernel, on the lines that
-    :func:`.fused_factor.line_axis` picks from the system's shape).  An
-    unknown name raises: no engine falls back to another."""
+    fused engine inverts in its own kernel, on the lines of least work
+    that :func:`.fused_factor.line_axis` picks from the system's shape:
+    along its longer axis, transposed where that is y).  An unknown name
+    raises: no engine falls back to another."""
     if method not in FACTOR_FN and method != "fused":
         raise ValueError(f"unknown solver method {method!r}")
     if inv_method not in INV_FN:

@@ -20,6 +20,11 @@ SWEEP_TOL = 1e-5
 # a gradient eval's boundary fields: one forward and one vjp launch
 MT1D = {"mt1d_field": 1, "mt1d_field_vjp": 1}
 FUSED = ("schur_factor", "bt_sweep_fwd", "bt_sweep_bwd")
+# the fused launches of a two-mode gradient eval (refine 6: 7 solves forward, 7 adjoint)
+PER_EVAL = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
+# the least-work ordering of every system here (the tiny flagship's 10 x 11
+# interiors, dprism2d's 55 x 95, the wide profile's 51 x 225) lays its lines
+# along y, so exact counts add the *_lines_y keys (FF.on_lines_y)
 
 pytestmark = pytest.mark.cuda
 
@@ -58,7 +63,10 @@ def _system(B, nzi, q, seed):
     # so the forward sweep's aligned span around it would end past G
     (1, 1, 95, 10), (3, 5, 75, 11),
     # the wide COPROD2 profile on lines along y: 225 lines of 51, B = 192
-    (192, 225, 51, 12)])
+    (192, 225, 51, 12),
+    # the main path's layouts of dprism2d (95 lines of 55, B = 176) and
+    # coprod2 (75 lines of 51, B = 192), lines along y
+    (176, 95, 55, 13), (192, 75, 51, 14)])
 def test_kernels_match_plain(cuda_device, B, nzi, q, seed):
     d, oy, oz, b = (t.to(cuda_device) for t in _system(B, nzi, q, seed))
     FF.reset_launches()
@@ -110,7 +118,7 @@ def test_factor_polish0_is_bit_equal_to_plain(cuda_device, B, nzi, q, seed):
 def test_single_mode_fused_eval_launches(cuda_device):
     """A TE-only survey (Z_XY and the tipper) solves its own mode alone: one
     fused gradient eval launches the factor once and each sweep 14 times,
-    and agrees with the plain versions on the CPU."""
+    all on lines along y, and agrees with the plain versions on the CPU."""
     cfg = SolveConfig(torch.complex64, 6, "fused")
     kw = dict(tiny=True, cfg=cfg, data_comp=("ZXY", "TZY"),
               data_type="Impedance_Tipper")
@@ -120,8 +128,7 @@ def test_single_mode_fused_eval_launches(cuda_device):
                         dtype=torch.float32)
     FF.reset_launches()
     (U, _), g = make_potential_vg(gpu, 1.0)(m.to(cuda_device), m.to(cuda_device))
-    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14,
-                             **MT1D}
+    assert FF.launches() == FF.on_lines_y({**PER_EVAL, **MT1D})
     (Uc, _), gc = make_potential_vg(cpu, 1.0)(m, m)
     assert relerr(U.cpu(), Uc) < 1e-4
     g, gc = g.cpu().double(), gc.double()
@@ -160,8 +167,8 @@ def test_y_line_factor_and_refined_solve_at_the_wide_profile(cuda_device):
     x = S.refined_solve(sys_, f, b, iters=6)
     x0 = S.factor_solve(f, b)
     torch.cuda.synchronize()
-    counts = {"schur_factor": 1, "bt_sweep_fwd": 8, "bt_sweep_bwd": 8}
-    assert FF.launches() == {**counts, **{k + FF.LINES_Y: n for k, n in counts.items()}}
+    assert FF.launches() == FF.on_lines_y({"schur_factor": 1, "bt_sweep_fwd": 8,
+                                        "bt_sweep_bwd": 8})
     assert f.fac.lines == "y" and tuple(f.fac.G.shape) == (192, 225, 51, 51)
     exact = S.factor_solve(S.factorize(sys_), b)
     assert float((x - exact).norm() / exact.norm()) < 1e-12
@@ -169,17 +176,42 @@ def test_y_line_factor_and_refined_solve_at_the_wide_profile(cuda_device):
     FF.reset_launches()
 
 
-def test_graphed_y_line_eval_replays_its_capture_launches(cuda_device):
-    """The coprod2_full.sample cell's eval (C = 8, 12 frequencies, 225 x 51
-    interiors), served by the graphed potential: each replay counts the
-    launches its capture recorded, one factor and 14 sweep pairs on lines
-    along y beside the boundary fields' two, and equals the eager eval."""
+def test_least_work_lines_at_the_dprism2d_shape(cuda_device):
+    """B = 176 systems of 55 x 95 (the dprism2d cells'): ``factorize`` lays
+    their lines along the shorter axis, 95 lines of 55 along y in the
+    64-wide tile, and, refined six times against the complex128 operator,
+    solves them as complex128 thomas does (LU inverses of 95-wide z-line
+    blocks) to complex128 rounding; unrefined, to complex64's."""
+    from hmcmt2d_tpu_torch.ops import solver as S
+
+    sys_, b = _wide_system(176, 55, 95, 13, cuda_device)
+    FF.reset_launches()
+    f = S.factorize(sys_, dtype=torch.complex64, method="fused")
+    x = S.refined_solve(sys_, f, b, iters=6)
+    x0 = S.factor_solve(f, b)
+    torch.cuda.synchronize()
+    assert FF.launches() == FF.on_lines_y({"schur_factor": 1, "bt_sweep_fwd": 8,
+                                        "bt_sweep_bwd": 8})
+    assert f.fac.lines == "y" and tuple(f.fac.G.shape) == (176, 95, 55, 55)
+    exact = S.factor_solve(S.factorize(sys_), b)
+    assert float((x - exact).norm() / exact.norm()) < 1e-12
+    assert float((x0 - exact).norm() / exact.norm()) < 1e-5
+    FF.reset_launches()
+
+
+@pytest.mark.parametrize("config", ["coprod2_full", "dprism2d", "coprod2"])
+def test_graphed_y_line_eval_replays_its_capture_launches(cuda_device, config):
+    """A sample cell's eval (C = 8; interiors of 51 x 225, 55 x 95 and 51 x
+    75), served by the graphed potential: each replay counts the launches
+    its capture recorded, one factor and 14 sweep pairs on lines along y
+    (the shorter axis in all three) beside the boundary fields' two, and
+    equals the eager eval."""
     from pathlib import Path
 
     from benchmark import harness
 
     root = Path(__file__).resolve().parents[1]
-    cfg = harness.load(root, "configs", "coprod2_full")
+    cfg = harness.load(root, "configs", config)
     inp = harness.make_inputs(root, cfg, 1, cuda_device)
     problem, _ = harness.build_problem(root, cfg, inp, cfg["solve"], cuda_device)
     vg = make_potential_vg(problem, cfg["smoothparameter"])
@@ -188,8 +220,7 @@ def test_graphed_y_line_eval_replays_its_capture_launches(cuda_device):
     m_ref = m.roll(1, 0)    # another chain's start: a prior term of each chain
     FF.reset_launches()
     out = vg(m, m_ref)
-    per_eval = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
-    per_eval.update({k + FF.LINES_Y: n for k, n in per_eval.items()}, **MT1D)
+    per_eval = FF.on_lines_y({**PER_EVAL, **MT1D})
     assert FF.launches() == per_eval
     (cap,) = vg.captures.values()
     assert cap.launches == per_eval
@@ -240,7 +271,8 @@ def test_fwd_sweep_reads_nothing_past_G(cuda_device):
 
 def test_fused_gradient_on_card_matches_cpu(cuda_device):
     """The tiny flagship's fused potential and gradient on the card (the
-    kernels) against the same config on the CPU (the plain versions)."""
+    kernels, one factor and 14 sweep pairs on lines along y) against the
+    same config on the CPU (the plain versions)."""
     cfg = SolveConfig(torch.complex64, 6, "fused")
     gpu, m0 = entry.flagship_problem(tiny=True, device=None)
     assert gpu.fwd.cfg == cfg and gpu.device.type == "cuda"
@@ -250,8 +282,7 @@ def test_fused_gradient_on_card_matches_cpu(cuda_device):
                         dtype=torch.float32)
     FF.reset_launches()
     (U, _), g = make_potential_vg(gpu, 1.0)(m.to(cuda_device), m.to(cuda_device))
-    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14,
-                             **MT1D}
+    assert FF.launches() == FF.on_lines_y({**PER_EVAL, **MT1D})
     (Uc, _), gc = make_potential_vg(cpu, 1.0)(m, m)
     assert relerr(U.cpu(), Uc) < 1e-4
     g, gc = g.cpu().double(), gc.double()
@@ -432,8 +463,8 @@ def test_run_inversion_main_phase_on_the_kernels(cuda_device):
 def test_bench_measure_ess_launches(cuda_device, monkeypatch):
     """The bench's ``measure_ess`` on the tiny flagship on the card (warmup,
     the Gauss-Newton mass under thomas, re-adaptation, the timed window):
-    every batched eval of the window launches (1, 14, 14), and the run no
-    ``gj_inverse``."""
+    every batched eval of the window launches (1, 14, 14), on lines along
+    y, and the run no ``gj_inverse``."""
     from hmcmt2d_tpu_torch import bench
 
     windows = []
@@ -450,9 +481,7 @@ def test_bench_measure_ess_launches(cuda_device, monkeypatch):
     counts = FF.launches()
     (w,) = windows
     evals = int(w.result.lf_steps[:, 0].sum())
-    assert w.launches == {"schur_factor": evals, "bt_sweep_fwd": 14 * evals,
-                          "bt_sweep_bwd": 14 * evals, "mt1d_field": evals,
-                          "mt1d_field_vjp": evals}
+    assert w.launches == FF.on_lines_y({k: evals * n for k, n in {**PER_EVAL, **MT1D}.items()})
     assert stats["nfevals"] == 2 * evals + 2
     assert "gj_inverse" not in counts and counts["schur_factor"] > evals
     assert stats["kernel_mass"] == "gauss-newton" and stats["kernel_adapted"]
@@ -599,20 +628,18 @@ def test_graphed_eval_equals_eager_on_two_models(cuda_device):
 
 def test_graphed_replay_counts_one_eval(cuda_device):
     """The capture's warm-ups and recording leave the counts as they were;
-    each replay of the two-mode eval adds (1, 14, 14) and the boundary
-    fields' forward and vjp once each."""
+    each replay of the two-mode eval adds (1, 14, 14), on lines along y,
+    and the boundary fields' forward and vjp once each."""
     vg, _, (ma, _mb) = _graphed_pair(cuda_device, 2, 4)
     FF.reset_launches()
     vg(ma, ma)
-    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14,
-                             **MT1D}
+    per_eval = FF.on_lines_y({**PER_EVAL, **MT1D})
+    assert FF.launches() == per_eval
     for k in (2, 3):
         vg(ma, ma)
-        assert FF.launches() == {"schur_factor": k, "bt_sweep_fwd": 14 * k,
-                                 "bt_sweep_bwd": 14 * k, "mt1d_field": k,
-                                 "mt1d_field_vjp": k}
+        assert FF.launches() == {name: k * n for name, n in per_eval.items()}
     (cap,) = vg.captures.values()
-    assert cap.launches == {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14, **MT1D}
+    assert cap.launches == per_eval
     assert cap.summary()["launches_per_replay"] == cap.launches
     assert cap.warmup_launches["schur_factor"] == 3 and cap.pool_bytes > 0
 

@@ -1,16 +1,17 @@
 """The fused engine on a profile wider than its kernels' widest line.
 
-A mode's interior system of ny_i x nz_i unknowns is factorised with its
-lines along z (one line of ny_i unknowns a z-row) while ny_i fits the
-kernels (``fused_factor.Q_MAX``); a wider one is factorised transposed,
-its lines along y (``fused_factor.line_axis``).  Here, on a mesh of 132 x
-(6 + 2 air) cells (ny_i = 131 > Q_MAX, nz_i = 7), through the kernels'
-plain versions on the CPU: the fused potential, gradient and predictions
-against the benchmark's plain reference (``benchmark/reference``) and the
-port's exact thomas engine; the y-line factor-and-solve against the
-z-line one where both fit; the orientation rule; the y-line eval on
-emulated CUDA graphs, with its launch counts; and the tool that makes the
-full COPROD2 profile's model file.
+A mode's interior system of ny_i x nz_i unknowns is factorised in its
+ordering of least work (``fused_factor.line_axis``): its lines along the
+longer axis, each of min(ny_i, nz_i) unknowns, along z (one line of ny_i
+unknowns a z-row) when ny_i <= nz_i, else transposed, its lines along y.
+A mesh of 132 x (6 + 2 air) cells (ny_i = 131 > Q_MAX, nz_i = 7) can only
+be solved on y-lines.  Here, through the kernels' plain versions on the
+CPU: the fused potential, gradient and predictions on that mesh against
+the benchmark's plain reference (``benchmark/reference``) and the port's
+exact thomas engine; the y-line factor-and-solve against the z-line one,
+dprism2d's interior shape included; the orientation rule; the eval on
+emulated CUDA graphs, with its launch counts on either axis; and the tool
+that makes the full COPROD2 profile's model file.
 """
 
 import json
@@ -54,14 +55,14 @@ TOL = {"exact": dict(U=1e-10, pred=1e-10, grad=1e-9),
 PER_EVAL = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
 
 
-def write_wide_model(path: Path, seed: int = 0) -> None:
-    """132 x 6 cells under 2 air layers, 400 m core cells, a seeded random
-    log-conductivity (0.7 of a log unit about 0.01 S/m)."""
+def write_wide_model(path: Path, seed: int = 0, ny: int = NY) -> None:
+    """ny (132) x 6 cells under 2 air layers, 400 m core cells, a seeded
+    random log-conductivity (0.7 of a log unit about 0.01 S/m)."""
     rng = np.random.default_rng(seed)
-    dy = np.array([3200.0, 1600, 800] + [400.0] * (NY - 6) + [800, 1600, 3200])
+    dy = np.array([3200.0, 1600, 800] + [400.0] * (ny - 6) + [800, 1600, 3200])
     dz = np.array([200.0, 300, 500, 800, 1500, 3000])
-    sig = 0.01 * np.exp(0.7 * rng.standard_normal((NZ, NY)))
-    lines = ["#Format: EMModel2DFile", f"NY: {NY}", " ".join(f"{v:.2f}" for v in dy),
+    sig = 0.01 * np.exp(0.7 * rng.standard_normal((NZ, ny)))
+    lines = ["#Format: EMModel2DFile", f"NY: {ny}", " ".join(f"{v:.2f}" for v in dy),
              f"NAIR: {len(AIR)}", " ".join(f"{v:.2f}" for v in AIR), f"NZ: {NZ}",
              " ".join(f"{v:.2f}" for v in dz), "Resistivity Type: Conductivity",
              "Model Type: Linear"]
@@ -70,14 +71,19 @@ def write_wide_model(path: Path, seed: int = 0) -> None:
     path.write_text("\n".join(lines) + "\n")
 
 
+def _mesh_inputs(root: Path, ny: int, cfg: dict):
+    """A mesh of ny x (6 + 2 air) cells under ``root`` and its inputs
+    (observations from the reference at the model, seed 5)."""
+    write_wide_model(root / cfg["model_file"], ny=ny)
+    return harness.make_inputs(root, cfg, 5, CPU)
+
+
 @pytest.fixture(scope="module")
 def wide(tmp_path_factory):
-    """The wide mesh's inputs (observations from the reference at the
-    model, seed 5), the reference over them, and two models 0.3 of a log
-    unit off the model."""
+    """The wide mesh's inputs, the reference over them, and two models 0.3
+    of a log unit off the model."""
     root = tmp_path_factory.mktemp("wide")
-    write_wide_model(root / CFG["model_file"])
-    inp = harness.make_inputs(root, CFG, 5, CPU)
+    inp = _mesh_inputs(root, NY, CFG)
     ref = RF.Reference(inp.model, inp.rx_y, inp.freqs, CPU, obs=inp.obs,
                        weights=1.0 / inp.err, reg=1.0)
     gen = torch.Generator().manual_seed(0)
@@ -148,11 +154,13 @@ def _system(batch, nzi, nyi, seed):
     return sys_, torch.complex(r(nzi, nyi), r(nzi, nyi))
 
 
-def _y_line_factor(sys_: S.InteriorSystem) -> S.Factorization:
-    """The fused factor of ``sys_`` on lines along y, whatever its shape:
-    what ``factorize`` builds when ny_i > Q_MAX, called directly."""
+def _factor_on(sys_: S.InteriorSystem, lines: str) -> S.Factorization:
+    """The fused factor of ``sys_`` on lines along ``lines``, whatever its
+    shape: what ``factorize`` builds for a system whose shorter side is
+    that axis's, called directly."""
     ssys, s = S.equilibrate(sys_)
-    return S.Factorization(FF.fused_schur_factor(*S.transposed(ssys), lines="y"), s)
+    fac = FF.fused_schur_factor(*(S.transposed(ssys) if lines == "y" else ssys), lines=lines)
+    return S.Factorization(fac, s)
 
 
 @pytest.mark.parametrize("batch,nzi,nyi", [((3,), 6, 9), ((2, 2), 5, 5), ((1,), 2, 4)])
@@ -162,15 +170,30 @@ def test_y_lines_solve_the_system_the_z_lines_solve(batch, nzi, nyi):
     complex128 rounding; unrefined, each complex64 factor holds it to
     complex64's (they round apart: the orderings differ)."""
     sys_, b = _system(batch, nzi, nyi, 7)
-    f_z = S.factorize(sys_, method="fused")
-    f_y = _y_line_factor(sys_)
+    f_z, f_y = _factor_on(sys_, "z"), _factor_on(sys_, "y")
     assert (f_z.fac.lines, f_y.fac.lines) == ("z", "y")
     assert f_y.fac.G.shape == (int(np.prod(batch)), nyi, nzi, nzi)
+    assert S.factorize(sys_, method="fused").fac.lines == FF.line_axis(nzi, nyi)
     exact = S.factor_solve(S.factorize(sys_), b)
     for f in (f_z, f_y):
         x = S.refined_solve(sys_, f, b, iters=6)
         assert float((x - exact).norm() / exact.norm()) < 1e-13
         assert float((S.factor_solve(f, b) - exact).norm() / exact.norm()) < 1e-5
+
+
+@pytest.mark.parametrize("lines", ["z", "y"])
+def test_both_orientations_solve_a_dprism2d_shaped_system(lines):
+    """dprism2d's interior, 55 x 95, at B = 2 in complex128: its least-work
+    factor (``factorize``: 95 lines of 55 along y) and the z-line factor
+    (55 lines of 95, which no cell runs any more), each refined six times,
+    agree with complex128 thomas to 1e-12."""
+    sys_, b = _system((2,), 55, 95, 11)
+    f = S.factorize(sys_, method="fused") if lines == "y" else _factor_on(sys_, "z")
+    assert f.fac.lines == lines
+    assert f.fac.G.shape == ((2, 95, 55, 55) if lines == "y" else (2, 55, 95, 95))
+    exact = S.factor_solve(S.factorize(sys_), b)
+    x = S.refined_solve(sys_, f, b, iters=6)
+    assert float((x - exact).norm() / exact.norm()) < 1e-12
 
 
 def test_y_line_factor_serves_a_wider_batch_of_right_hand_sides():
@@ -188,12 +211,15 @@ def test_y_line_factor_serves_a_wider_batch_of_right_hand_sides():
 
 
 @pytest.mark.parametrize("nzi,nyi,lines", [
-    (55, 95, "z"), (51, 75, "z"),           # dprism2d's and coprod2's interiors
-    (1, FF.Q_MAX, "z"), (FF.Q_MAX + 40, FF.Q_MAX, "z"),
-    (51, 225, "y"), (7, 131, "y"), (FF.Q_MAX, FF.Q_MAX + 1, "y")])
+    (55, 95, "y"), (51, 75, "y"),           # dprism2d's and coprod2's interiors
+    (51, 225, "y"), (7, 131, "y"), (FF.Q_MAX, FF.Q_MAX + 1, "y"), (1, FF.Q_MAX, "y"),
+    (FF.Q_MAX + 40, FF.Q_MAX, "z"),
+    (10, 10, "z"), (FF.Q_MAX, FF.Q_MAX, "z"),   # ties keep z
+    (FF.Q_MAX + 1, 60, "z"), (60, FF.Q_MAX + 1, "y")])   # only the shorter side fits
 def test_orientation_rule(nzi, nyi, lines):
-    """Lines along z while ny_i fits the kernels (every cell before the
-    wide profile), along y when only nz_i fits."""
+    """The ordering of least work: lines along the longer axis, each of
+    min(ny_i, nz_i) unknowns; a tie keeps z; the longer side may be wider
+    than the kernels."""
     assert FF.line_axis(nzi, nyi) == lines
 
 
@@ -215,31 +241,47 @@ def _flagship():
     return prob, m, m
 
 
-@pytest.mark.parametrize("case", ["wide", "flagship"])
-def test_graphed_eval_on_emulated_graphs_counts_its_lines(wide, case, monkeypatch):
+def _tall(root: Path):
+    """A mesh of 7 x (6 + 2 air) cells, interiors of ny_i = 6 < nz_i = 7
+    (lines along z), under the fused production setting; chain 1's start
+    for both models."""
+    cfg = {**CFG, "receivers": {"count": 4, "first_y_m": -3000.0, "last_y_m": 3000.0}}
+    inp = _mesh_inputs(root, 7, cfg)
+    prob, _ = harness.build_problem(root, cfg, inp, FUSED_64, CPU)
+    m = inp.m_start.float()
+    return prob, m, m
+
+
+@pytest.mark.parametrize("case,lines", [("wide", "y"), ("flagship", "y"), ("tall", "z")])
+def test_graphed_eval_on_emulated_graphs_counts_its_lines(wide, case, lines, monkeypatch,
+                                                          tmp_path):
     """The graphed fused eval on the CPU's emulated graphs: after its first
     call it reads nothing back to the host, and each replay counts one
     factor and 14 sweep pairs (refine 6, two solves), all on lines along y
-    on the wide mesh and none on the flagship's z-lines."""
+    on the wide mesh and on the tiny flagship's 10 x 11 interiors, and none
+    on the tall mesh's z-lines."""
     if case == "wide":
         root, inp, _, m, m_ref = wide
         prob, _ = harness.build_problem(root, CFG, inp, FUSED_64, CPU)
         m, m_ref = m.float(), m_ref.float()
-    else:
+    elif case == "flagship":
         prob, m, m_ref = _flagship()
+    else:
+        prob, m, m_ref = _tall(tmp_path)
+    assert FF.line_axis(prob.mesh.nz - 1, prob.mesh.ny - 1) == lines
     monkeypatch.setattr(G, "unservable", lambda problem: None)
     monkeypatch.setattr(G, "capture", emulated_graph_capture)
-    lines_y = {k + FF.LINES_Y: n for k, n in PER_EVAL.items()} if case == "wide" else {}
+    per_eval = FF.on_lines_y(PER_EVAL) if lines == "y" else PER_EVAL
     with counted_plain_versions():
         vg = G.GraphedPotential(prob, 1.0)
         (U0, _), g0 = vg(m, m_ref)
-        assert FF.launches() == {**PER_EVAL, **lines_y}
+        assert FF.launches() == per_eval
         with no_host_round_trip() as made:
             (U1, _), g1 = vg(m, m_ref)
         assert made == []
-        assert FF.launches() == {k: 2 * n for k, n in {**PER_EVAL, **lines_y}.items()}
+        assert FF.launches() == {k: 2 * n for k, n in per_eval.items()}
         (cap,) = vg.captures.values()
-        assert cap.launches == {**PER_EVAL, **lines_y}
+        assert cap.launches == per_eval
     assert torch.equal(U0, U1) and torch.equal(g0, g1)
 
 
@@ -247,7 +289,7 @@ def test_replayed_y_line_launches_add_apart():
     """A capture's y-line counts ride through ``add_launches`` beside the
     kernels' own, and leave ``launches()`` when taken back out."""
     FF.reset_launches()
-    delta = {**PER_EVAL, **{k + FF.LINES_Y: n for k, n in PER_EVAL.items()}}
+    delta = FF.on_lines_y(PER_EVAL)
     for _ in range(3):
         FF.add_launches(delta)
     assert FF.launches() == {k: 3 * n for k, n in delta.items()}
