@@ -688,9 +688,9 @@ def check_edges(torch, dev):
 def check_lines_y(torch, dev):
     """A mesh wider than the kernels' widest line (the wide COPROD2
     profile's interior, 51 x 225, at C = 1: B = 24) factorised by
-    ``factorize`` on lines along y, refined six times against complex128
-    thomas, with the launches counted on those lines apart; its factor and
-    one pair of sweeps against their plain versions on the same transposed
+    ``factorize`` on lines along y (its factor's record), refined six times
+    against complex128 thomas, with its launches counted; its factor and one
+    pair of sweeps against their plain versions on the same transposed
     inputs."""
     from hmcmt2d_tpu_torch.ops import fused_factor as FF
     from hmcmt2d_tpu_torch.ops import solver as S
@@ -716,7 +716,7 @@ def check_lines_y(torch, dev):
     say({"lines_y_shape": [24, 51, 225], "lines": f.fac.lines, "launches": counts,
          "refined_rel_err": rel, "schur_factor_rel_err": g_rel,
          "bt_sweep_fwd_rel_err": y_rel, "bt_sweep_bwd_rel_err": x_rel})
-    want = FF.on_lines_y({"schur_factor": 1, "bt_sweep_fwd": 7, "bt_sweep_bwd": 7})
+    want = {"schur_factor": 1, "bt_sweep_fwd": 7, "bt_sweep_bwd": 7}
     if f.fac.lines != "y" or counts != want:
         fail(f"lines along y: {f.fac.lines}, launches {counts} != {want}")
     if not rel <= 1e-12:
@@ -772,12 +772,9 @@ def profile_eval(torch, vg, m, m_ref) -> dict:
 GRAPH_TIMED_EVALS = 20
 # the boundary fields' kernels (ops/mt1d.py): a forward and a vjp a gradient eval
 MT1D_PER_EVAL = {"mt1d_field": 1, "mt1d_field_vjp": 1}
-# the fused launches of a two-mode gradient eval on the flagship, whose 55 x
-# 95 interiors take lines along y (the least work, fused_factor.line_axis),
-# so each counts again under its *_lines_y key
+# the fused launches of a two-mode gradient eval on the flagship
 FUSED_PER_EVAL = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
-EVAL_PER_REPLAY = {**FUSED_PER_EVAL, **{k + "_lines_y": n for k, n in FUSED_PER_EVAL.items()},
-                   **MT1D_PER_EVAL}
+EVAL_PER_REPLAY = {**FUSED_PER_EVAL, **MT1D_PER_EVAL}
 
 OUTPUT_NAMES = ("U", "misfit", "mnorm", "pred", "grad")
 
@@ -1632,7 +1629,7 @@ def check_sharded_cli(problem, m0, smi):
 
 # phase 9
 SINGLE_MODE_SURVEYS = ((("ZXY", "TZY"), "Impedance_Tipper"), (("RhoYX", "PhsYX"), "Rho_Phs"))
-SINGLE_MODE_LAUNCHES = EVAL_PER_REPLAY   # the same mesh, so the same lines
+SINGLE_MODE_LAUNCHES = EVAL_PER_REPLAY   # the same mesh, so the same launches
 
 
 def check_single_mode(torch, m, m_ref, eval_ms_phase4, smi):
@@ -3052,8 +3049,8 @@ def main() -> None:
     source = {
         "schur_factor": "hmcmt2d_tpu_torch/csrc/schur_factor.cu",
         "schur_factor_polish": "hmcmt2d_tpu_torch/csrc/schur_factor.cu",
-        "bt_sweep_fwd": "hmcmt2d_tpu_torch/csrc/bt_sweep_fwd.cu",
-        "bt_sweep_bwd": "hmcmt2d_tpu_torch/csrc/bt_sweep_bwd.cu",
+        "bt_sweep_fwd": "hmcmt2d_tpu_torch/csrc/bt_sweep.cu",
+        "bt_sweep_bwd": "hmcmt2d_tpu_torch/csrc/bt_sweep.cu",
         "gj_inverse": "hmcmt2d_tpu_torch/csrc/gj_inverse.cu",
         "mt1d_field": "hmcmt2d_tpu_torch/csrc/mt1d_field.cu",
         "mt1d_field_vjp": "hmcmt2d_tpu_torch/csrc/mt1d_field.cu",

@@ -183,9 +183,16 @@ def cmd_run(args):
             prof.export_chrome_trace(trace)
             print(f"[hmcmt2d] profiler trace written to {trace}", flush=True)
             # the kernels inside a CUDA graph show in the trace under the
-            # graph's launch; their counts, those on lines along y apart
+            # graph's launch; their counts, and the axis along which the fused
+            # engine lays each solved mode's lines, from the mesh's shape
             counts = {k: n for k, n in FF.launches().items() if n}
             print(f"[hmcmt2d] kernel launches: {counts}", flush=True)
+            if solve_cfg.solver_method == "fused":
+                nzi, nyi = mesh.nz - 1, mesh.ny - 1
+                axis = FF.line_axis(nzi, nyi)
+                modes = [m for m, on in (("TE", data.comp_te), ("TM", data.comp_tm)) if on]
+                print(f"[hmcmt2d] fused lines: {', '.join(f'{m} along {axis}' for m in modes)}"
+                      f" (interiors of {nzi} x {nyi})", flush=True)
         if _rank() == 0:
             _write_outputs(args, cfg, run)
         return 0

@@ -1,6 +1,7 @@
-// Device helpers of the two triangular sweeps (bt_sweep_fwd.cu,
-// bt_sweep_bwd.cu): cp.async for the vector lines, mbarriers and TMA bulk
-// copies for the ring of G chunks in shared memory.
+// Device helpers of the two triangular sweeps (bt_sweep.cu): cp.async for
+// the vector lines, mbarriers and TMA bulk copies for the ring of G chunks
+// in shared memory.  The sweeps' only inline PTX is here, so that a test can
+// put host versions in place of these helpers (tests/csrc_emulator.py).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,6 +32,11 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
                :: "r"(smem_addr(bar)) : "memory");
+}
+
+// makes the mbarriers' initialisation visible to the bulk copies
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // arrive once and expect `bytes` from the bulk copy that follows

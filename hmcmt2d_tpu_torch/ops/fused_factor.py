@@ -30,16 +30,15 @@ thomas, thomas_blocked and bcr engines under ``inv_method="gj"``
 Each system is factorised in its ordering of least work
 (:func:`line_axis`): its lines along the longer axis, min(ny_i, nz_i)
 unknowns wide.  Where that is along y, the same kernels run on the
-transposed system, their launches counted apart as well (:func:`launches`,
-the ``*_lines_y`` keys).
+transposed system (:class:`FusedFactor` records the axis).
 
 The TPU layout (split real/imaginary planes, q padded to 128, q-tight
 rows) existed because Pallas on a TPU has no complex type and tiles by
 (8, 128).  The kernels here take complex64 tensors as interleaved float2
 (``gj_inverse`` also complex128, as double2): G is (B, nzi, q, q)
 complex64, C-contiguous, one system (or matrix) per thread block.
-The source notes in ``csrc/*.cu`` (``schur_factor.cu``, ``bt_sweep_fwd.cu``,
-``bt_sweep_bwd.cu``, ``gj_inverse.cu``) say what bounds each kernel on the
+The source notes in ``csrc/*.cu`` (``schur_factor.cu``, ``bt_sweep.cu``,
+``gj_inverse.cu``) say what bounds each kernel on the
 card and what its design does about it.  Each kernel is compiled for a few
 padded widths; its launch plan (:func:`schur_factor_plan`,
 :func:`bt_sweep_fwd_plan`, :func:`bt_sweep_bwd_plan`,
@@ -145,7 +144,7 @@ class LaunchPlan(NamedTuple):
 
 LANES, WARPS = 32, 16
 COMPLEX_BYTES = 8
-SWEEP_VEC_LINES = 3   # lines of the rhs and c in a sweep's ring (csrc/bt_sweep_*.cu E)
+SWEEP_VEC_LINES = 3   # lines of the rhs and c in a sweep's ring (csrc/bt_sweep.cu E)
 
 
 def _padded(q: int) -> int:
@@ -176,15 +175,16 @@ def schur_factor_plan(q: int, polish: int = 0) -> LaunchPlan:
 
 
 def bt_sweep_bwd_plan(q: int) -> LaunchPlan:
-    """Plan of ``csrc/bt_sweep_bwd.cu``: 16 warps multiply, warp w rows
-    qp/16 w .. qp/16 (w + 1) - 1 of each line and lane l columns l + 32 c;
-    a 17th warp fetches.  G streams through a ring of ``ring`` chunk slots
-    in shared memory, one TMA bulk copy a chunk: a line up to qp = 96, half
-    a line at 128 (three lines would not fit).  A slot holds its rows x qp +
-    2 complex (a chunk starting 8 bytes off a 16-byte boundary sits one
-    element in) and has an mbarrier.  Beside them: the double-buffered carry
-    and SWEEP_VEC_LINES lines of y and c.  Three slots.  The C entry point
-    computes the same bytes and refuses another plan."""
+    """Plan of the backward sweep (``csrc/bt_sweep.cu``): 16 warps
+    multiply, warp w rows qp/16 w .. qp/16 (w + 1) - 1 of each line and
+    lane l columns l + 32 c; a 17th warp fetches.  G streams through a ring
+    of ``ring`` chunk slots in shared memory, one TMA bulk copy a chunk: a
+    line up to qp = 96, half a line at 128 (three lines would not fit).  A
+    slot holds its rows x qp + 2 complex (a chunk starting 8 bytes off a
+    16-byte boundary sits one element in) and has an mbarrier.  Beside
+    them: the double-buffered carry and SWEEP_VEC_LINES lines of y and c.
+    Three slots.  The C entry point computes the same bytes and refuses
+    another plan."""
     qp = _padded(q)
     rows = qp // WARPS                                 # rows per warp and line
     chunk = qp if qp <= 96 else qp // 2                # rows per chunk
@@ -197,10 +197,10 @@ def bt_sweep_bwd_plan(q: int) -> LaunchPlan:
 
 
 def bt_sweep_fwd_plan(q: int) -> LaunchPlan:
-    """Plan of ``csrc/bt_sweep_fwd.cu``: the layout of
+    """Plan of the forward sweep (``csrc/bt_sweep.cu``): the layout of
     :func:`bt_sweep_bwd_plan`, with b in place of y.  Half-line chunks at
     qp = 96, which would fit two blocks an SM, were measured and lost
-    (csrc/bt_sweep_fwd.cu).  The C entry point computes the same bytes and
+    (csrc/bt_sweep.cu).  The C entry point computes the same bytes and
     refuses another plan."""
     return bt_sweep_bwd_plan(q)
 
@@ -297,7 +297,6 @@ def _launch_factor(diag, offy, offz, polish: int) -> torch.Tensor:
 
 schur_factor.launches = 0
 schur_factor.polish_launches = 0
-schur_factor.lines_y_launches = 0   # of its launches, those on lines along y
 
 
 # ---------------------------------------------------------------------------
@@ -371,8 +370,6 @@ def bt_sweep_bwd(G: torch.Tensor, offz: torch.Tensor,
 
 bt_sweep_fwd.launches = 0
 bt_sweep_bwd.launches = 0
-bt_sweep_fwd.lines_y_launches = 0
-bt_sweep_bwd.lines_y_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -463,7 +460,6 @@ def _launch_gj(A: torch.Tensor) -> torch.Tensor:
 gj_inverse.launches = 0
 
 KERNELS = (schur_factor, bt_sweep_fwd, bt_sweep_bwd)
-LINES_Y = "_lines_y"   # the key suffix of the KERNELS' launches on lines along y
 # counted kernels off the fused factor and solve, which appear in launches()
 # only when nonzero: gj_inverse, and those that register()
 _OPTIONAL = {"gj_inverse": gj_inverse}
@@ -479,8 +475,6 @@ def register(wrapper) -> None:
 def reset_launches() -> None:
     for k in KERNELS + tuple(_OPTIONAL.values()):
         k.launches = 0
-    for k in KERNELS:
-        k.lines_y_launches = 0
     schur_factor.polish_launches = 0
 
 
@@ -490,25 +484,12 @@ def launches() -> dict[str, int]:
     (``schur_factor_polish``), the engines' ``gj_inverse`` and the
     registered kernels (the boundary fields' ``mt1d_field`` and
     ``mt1d_field_vjp``) count apart, and appear only when nonzero, so a
-    path that runs none of them keeps the three keys.  So do the fused
-    kernels' launches on lines along y (``schur_factor_lines_y``,
-    ``bt_sweep_fwd_lines_y``, ``bt_sweep_bwd_lines_y``), which the
-    kernels' own counts include."""
+    path that runs none of them keeps the three keys."""
     out = {k.__name__: k.launches for k in KERNELS}
     if schur_factor.polish_launches:
         out["schur_factor_polish"] = schur_factor.polish_launches
-    out.update((k.__name__ + LINES_Y, k.lines_y_launches) for k in KERNELS
-               if k.lines_y_launches)
     out.update((name, k.launches) for name, k in _OPTIONAL.items() if k.launches)
     return out
-
-
-def on_lines_y(counts: dict[str, int]) -> dict[str, int]:
-    """``counts`` with the KERNELS' launches in it counted again under their
-    ``*_lines_y`` keys: what :func:`launches` reads of a path whose fused
-    factors all lie along y."""
-    names = {k.__name__ for k in KERNELS}
-    return {**counts, **{k + LINES_Y: n for k, n in counts.items() if k in names}}
 
 
 def launch_delta(before: dict[str, int], after: dict[str, int]) -> dict[str, int]:
@@ -527,8 +508,6 @@ def add_launches(delta: dict[str, int]) -> None:
     for name, n in delta.items():
         if name == "schur_factor_polish":
             schur_factor.polish_launches += n
-        elif name.endswith(LINES_Y):
-            by_name[name.removesuffix(LINES_Y)].lines_y_launches += n
         else:
             by_name[name].launches += n
 
@@ -566,17 +545,6 @@ def line_axis(nzi: int, nyi: int) -> str:
     return "z" if nyi <= nzi else "y"
 
 
-def _counted(kernel, lines: str, *args) -> torch.Tensor:
-    """``kernel(*args)``, its launches counted on lines along y too when
-    ``lines`` is "y" (whatever raised ``kernel.launches``: the kernel, or a
-    test's count of its plain version)."""
-    before = kernel.launches
-    out = kernel(*args)
-    if lines == "y":
-        kernel.lines_y_launches += kernel.launches - before
-    return out
-
-
 def flatten_system(diag: torch.Tensor, offy: torch.Tensor, offz: torch.Tensor):
     """Broadcast an interior system's leading batch axes together and
     collapse them: contiguous complex64 diag (B, nzi, q), float32 offy
@@ -602,12 +570,12 @@ def fused_schur_factor(diag: torch.Tensor, offy: torch.Tensor,
     ``polish`` Newton-Schulz steps a line (0 on the main path).  The
     system is given in the layout of its lines: ``lines`` "y" says that it
     is a system transposed (``ops/solver.py`` does that), which changes
-    nothing here but the counts and the factor's record."""
+    nothing here but the factor's record."""
     q = diag.shape[-1]
     if q > Q_MAX:
         raise ValueError(f"fused factor supports q <= {Q_MAX}, got {q}")
     d, oy, oz, batch = flatten_system(diag, offy, offz)
-    return FusedFactor(_counted(schur_factor, lines, d, oy, oz, polish), oz, batch, lines)
+    return FusedFactor(schur_factor(d, oy, oz, polish), oz, batch, lines)
 
 
 def fused_bt_solve(fac: FusedFactor, b: torch.Tensor) -> torch.Tensor:
@@ -617,6 +585,6 @@ def fused_bt_solve(fac: FusedFactor, b: torch.Tensor) -> torch.Tensor:
     tail = b.shape[-2:]
     v = b.expand(fac.batch + tail).reshape((-1,) + tail)
     v = v.to(torch.complex64).resolve_conj().contiguous()
-    y = _counted(bt_sweep_fwd, fac.lines, fac.G, fac.offz, v)
-    x = _counted(bt_sweep_bwd, fac.lines, fac.G, fac.offz, y)
+    y = bt_sweep_fwd(fac.G, fac.offz, v)
+    x = bt_sweep_bwd(fac.G, fac.offz, y)
     return x.reshape(fac.batch + tail).to(b.dtype)

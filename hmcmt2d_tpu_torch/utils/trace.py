@@ -19,9 +19,9 @@ Gauss-Newton mass's build (``gn.jacobian``, ``gn.host``); the README's
 captures holds a span: ``models/``, ``ops/`` and ``csrc/`` have none.  So
 what the graph decides inside itself shows in no span, such as the axis
 along which the fused engine lays a system's lines (z, or y on a mesh
-wider than the kernels' widest line); the launch counts carry that
-(``ops/fused_factor.py`` ``launches()``, its ``*_lines_y`` keys, which
-``cli.py --profile`` prints).
+wider than tall): ``cli.py --profile`` prints that beside the launch
+counts (its ``[hmcmt2d] fused lines:`` line, ``fused_factor.line_axis`` of
+the mesh's shape).
 """
 
 from __future__ import annotations

@@ -26,8 +26,10 @@ instance).  Run from the root of a checkout:
 ``--root`` times the kernels of another checkout of the repository (its
 ``hmcmt2d_tpu_torch``, built into its own ``_build``), so that two versions
 are compared on one card in one call.  ``--sass-against`` compares the SASS
-of ``schur_factor``'s polish = 0 instances here with those of another
-checkout, function by function, and prints whether each is identical.
+of ``schur_factor``'s polish = 0 instances and of every instance of both
+sweeps here with those of another checkout, function by function, and
+prints whether each is identical and each one's registers, stack and local
+memory (``cuobjdump -res-usage``) on both sides.
 
 Prints one JSON object per line; imports nothing of JAX.
 """
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import difflib
 import json
 import re
 import subprocess
@@ -114,39 +117,86 @@ def ptxas_report(kernel_build) -> list[str]:
     return lines
 
 
-def sass_functions(kernel_build, src: Path, tmp: Path) -> dict[str, str]:
-    """SASS of each function compiled from ``src``, by mangled name."""
+# the instances --sass-against compares: (source files, kernel, a mark of the
+# instance in its mangled name); the factor's polish = 0 instances (Lb0E)
+# and every instance of both sweeps
+SASS_KERNELS = (("schur_factor.cu", "schur_factor_kernel", "Lb0E"),
+                ("bt_sweep*.cu", "bt_sweep_fwd_kernel", ""),
+                ("bt_sweep*.cu", "bt_sweep_bwd_kernel", ""))
+
+
+def unnamed(text: str) -> str:
+    """``text`` with each anonymous namespace's mangled name, which carries
+    its source file's path and name, read as ``_GLOBAL__N_``, so that a
+    kernel compiled from another file keeps its name."""
+    out, i = [], 0
+    for m in re.finditer(r"(\d+)_GLOBAL__N_", text):
+        if m.start() >= i:
+            out += [text[i:m.start()], "_GLOBAL__N_"]
+            i = m.end(1) + int(m.group(1))
+    return "".join(out) + text[i:]
+
+
+def sass_functions(kernel_build, src: Path, tmp: Path) -> dict[str, dict]:
+    """SASS and resource usage (registers, stack, local memory) of each
+    function compiled from ``src``, by mangled name."""
     obj = tmp / f"{len(list(tmp.iterdir()))}_{src.stem}.o"
     nvcc_compile(kernel_build, src, obj)
     cuobjdump = Path(kernel_build._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(obj)], capture_output=True,
-                          text=True, check=True).stdout
-    funcs, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            # the anonymous namespace's name carries a hash of the file's path
-            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_", m.group(1))
-            funcs[name] = []
-        elif name is not None:
-            funcs[name].append(re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N_", line.strip()))
-    return {k: "\n".join(v) for k, v in funcs.items()}
+
+    def dump(flag):
+        text = subprocess.run([str(cuobjdump), flag, str(obj)], capture_output=True,
+                              text=True, check=True).stdout
+        funcs, name = {}, None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function(?: :)? (\S+?):?\s*$", line)
+            if m:
+                name = unnamed(m.group(1))
+                funcs[name] = []
+            elif name is not None:
+                funcs[name].append(unnamed(line.strip()))
+        return funcs
+
+    def labels(lines):
+        # branch labels are numbered across the file, and their width sets the
+        # columns: number them per function, one space between words
+        seen = {}
+        return [" ".join(re.sub(r"\.L_x_\d+",
+                                lambda m: seen.setdefault(m.group(0), f".L{len(seen)}"),
+                                ln).split()) for ln in lines]
+
+    res = dump("-res-usage")
+    return {k: {"sass": "\n".join(labels(v)), "res": " ".join(res.get(k, [])[:1])}
+            for k, v in dump("-sass").items()}
 
 
 def sass_against(kernel_build, other: Path) -> None:
-    """Compare schur_factor's polish = 0 instances (mangled ``Lb0E``) here
-    with those built from ``other``'s csrc."""
+    """Compare the SASS of the SASS_KERNELS instances here with those built
+    from ``other``'s csrc, function by function, whichever files hold them
+    there, and print each instance's resource usage on both sides."""
+    sides = []
     with tempfile.TemporaryDirectory(dir=kernel_build.BUILD_DIR) as tmp:
-        here = sass_functions(kernel_build, kernel_build.CSRC / "schur_factor.cu", Path(tmp))
-        there = sass_functions(kernel_build,
-                               other / "hmcmt2d_tpu_torch" / "csrc" / "schur_factor.cu",
-                               Path(tmp))
-    names = sorted(k for k in here if "schur_factor_kernel" in k and "Lb0E" in k)
-    for k in names:
-        print(json.dumps({"sass_polish0": k, "identical": here[k] == there.get(k),
-                          "instructions": here[k].count(";")}), flush=True)
-    if not names:
-        print(json.dumps({"sass_polish0": "no polish = 0 instance found"}), flush=True)
+        for csrc in (kernel_build.CSRC, other / "hmcmt2d_tpu_torch" / "csrc"):
+            funcs = {}
+            for pattern in sorted({p for p, _, _ in SASS_KERNELS}):
+                for src in sorted(csrc.glob(pattern)):
+                    funcs.update(sass_functions(kernel_build, src, Path(tmp)))
+            sides.append(funcs)
+    here, there = sides
+    for _, kernel, mark in SASS_KERNELS:
+        names = sorted(k for k in here if kernel in k and mark in k)
+        for k in names:
+            h, t = here[k], there.get(k, {"sass": None, "res": None})
+            row = {"sass": k, "identical": h["sass"] == t["sass"],
+                   "instructions": h["sass"].count(";"), "res_here": h["res"],
+                   "res_there": t["res"]}
+            if not row["identical"] and t["sass"] is not None:
+                diff = difflib.unified_diff(t["sass"].splitlines(), h["sass"].splitlines(),
+                                            lineterm="", n=0)
+                row["diff_head"] = [ln for ln in diff if ln[:1] in "+-"][2:22]
+            print(json.dumps(row), flush=True)
+        if not names:
+            print(json.dumps({"sass": f"no {kernel} instance found"}), flush=True)
 
 
 # One block's time for each step of gj_inverse's panel loop at qp = 96,
@@ -392,7 +442,8 @@ def main() -> None:
     ap.add_argument("--variants", action="store_true",
                     help="also time gj_inverse's panel / blocks-an-SM variants")
     ap.add_argument("--sass-against", type=Path, default=None,
-                    help="compare schur_factor's polish = 0 SASS with this checkout's")
+                    help="compare the SASS of the factor's polish = 0 instances and of "
+                         "both sweeps with this checkout's")
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -406,14 +457,16 @@ def main() -> None:
         sys.exit("needs a CUDA GPU")
     if Path(kernel_build.__file__).resolve().parent.parent.parent != root:
         sys.exit(f"imported {kernel_build.__file__}, not from {root}")
-    kernel_build.library()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(json.dumps({"card": smi.stdout.strip(), "root": str(root),
-                      "build_seconds": kernel_build.build_seconds}), flush=True)
     if args.sass_against is not None:
+        print(json.dumps({"card": smi.stdout.strip(), "root": str(root)}), flush=True)
+        kernel_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         sass_against(kernel_build, args.sass_against.resolve())
         return
+    kernel_build.library()
+    print(json.dumps({"card": smi.stdout.strip(), "root": str(root),
+                      "build_seconds": kernel_build.build_seconds}), flush=True)
     B = max(BATCHES)
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")

@@ -20,7 +20,7 @@ torch.set_num_threads(1)
 
 from hmcmt2d_tpu import cli as JC  # noqa: E402
 from hmcmt2d_tpu_torch import cli  # noqa: E402
-from hmcmt2d_tpu_torch.io import read_data, write_data, write_model  # noqa: E402
+from hmcmt2d_tpu_torch.io import read_data, read_model, write_data, write_model  # noqa: E402
 from tests.test_e2e import tiny_setup  # noqa: E402
 from tests.torch_parity import port_setup  # noqa: E402
 
@@ -183,6 +183,24 @@ def test_single_process_run_with_shard_flags(startup, tmp_path, capsys, flags, w
     assert (prof / "trace_rank0.json").stat().st_size > 0
     # the plain versions the CPU runs count no launch
     assert "[hmcmt2d] kernel launches: {}" in log
+
+
+def test_profile_prints_each_modes_line_axis(startup, tmp_path, capsys):
+    """Under the fused engine --profile prints, beside the launch counts,
+    the axis along which each solved mode's lines lie: line_axis of the
+    mesh's interior shape (the tiny mesh's 10 x 9 interiors: z)."""
+    from hmcmt2d_tpu_torch.ops.fused_factor import line_axis
+
+    rc = cli.main(["--device", "cpu", "--precision", "f32", "--refine", "6", "--solver",
+                   "fused", "run", str(startup), "--outdir", str(tmp_path), "--samples", "4",
+                   "--quiet", "--profile", str(tmp_path / "prof")])
+    log = capsys.readouterr().out
+    mesh = read_model(startup.parent / "start.mod", device="cpu")[0]
+    nzi, nyi = mesh.nz - 1, mesh.ny - 1
+    axis = line_axis(nzi, nyi)
+    assert rc == 0 and "[hmcmt2d] kernel launches: {}" in log
+    assert (f"[hmcmt2d] fused lines: TE along {axis}, TM along {axis} "
+            f"(interiors of {nzi} x {nyi})") in log
 
 
 def _two_ranks(startup, out, chains):

@@ -1,5 +1,5 @@
-"""The CUDA sources of ``gj_inverse``, ``schur_factor`` and ``mt1d_field``
-run on the CPU (``tests/csrc_emulator.py``: one OS thread a CUDA thread,
+"""The CUDA sources of ``gj_inverse``, ``schur_factor``, the two sweeps
+(``bt_sweep``) and ``mt1d_field`` run on the CPU (``tests/csrc_emulator.py``: one OS thread a CUDA thread,
 g++), held against their plain versions, and their C entry points' plan
 checks held against the launch plans of ``ops/fused_factor.py`` for every
 width (``ops/mt1d.py``'s block of one warp).
@@ -8,8 +8,9 @@ The emulation runs the kernels' own indexing, padding, barriers and
 shuffles, so it catches an index or a missing barrier here where only the
 card could otherwise; it rounds as the host does, not as nvcc contracts,
 so its tolerances are the card's (``chip_smoke.py``: 1e-4 and 1e-10 for
-``gj_inverse``, 1e-5 of max |G| for the factor; read here: at most 1.3e-6,
-2.3e-15 and 4.5e-7).  Small batches: each block is 512 threads.
+``gj_inverse``, 1e-5 of max |G| for the factor and of max |out| for the
+sweeps; read here: at most 1.3e-6, 2.3e-15 and 4.5e-7 for the first
+two).  Small batches: each block is 512 threads (the sweeps' 544).
 """
 
 import numpy as np
@@ -25,6 +26,7 @@ torch.set_num_threads(1)
 
 GJ_TOL = {torch.complex64: 1e-4, torch.complex128: 1e-10}
 FACTOR_TOL = 1e-5
+SWEEP_TOL = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -80,6 +82,59 @@ def test_schur_factor_source_matches_plain(lib, q, polish):
                                nzi, q, plan.qp, plan.n_threads, plan.smem_bytes, polish, None)
     assert err == 0
     assert relerr(G, FF.schur_factor_plain(d, oy, oz, polish)) < FACTOR_TOL
+
+
+# (q, B, nzi): every width template, one-line chunks up to qp = 96 and
+# half-line chunks at 128; B nzi q odd at q = 1, 51 and 95, where the
+# forward sweep cuts the chunk that ends G (at q = 1 to no bulk copy at all)
+SWEEP_CASES = [(1, 3, 3), (17, 2, 3), (51, 1, 3), (64, 2, 2), (95, 1, 3), (128, 1, 3)]
+
+
+@pytest.mark.parametrize("name", ["bt_sweep_fwd", "bt_sweep_bwd"])
+@pytest.mark.parametrize("q,B,nzi", SWEEP_CASES)
+def test_bt_sweep_source_matches_plain(lib, name, q, B, nzi):
+    """Each sweep given the plain factor of a diagonally dominant system,
+    against its plain version in complex64.  G lies at the start of a
+    buffer whose entries after it are NaN, so a span read past G would
+    poison the output, and the output starts as NaN, so an unwritten entry
+    shows; no bulk copy may be one a TMA copy refuses."""
+    rng = np.random.default_rng(60 + q)
+    d = torch.as_tensor((4.0 + 0.1 * rng.standard_normal((B, nzi, q))
+                         + 0.5j * rng.standard_normal((B, nzi, q))).astype(np.complex64))
+    oy = torch.as_tensor((1.0 + 0.1 * rng.standard_normal((B, nzi, q - 1))).astype(np.float32))
+    oz = torch.as_tensor((1.0 + 0.1 * rng.standard_normal((B, nzi - 1, q))).astype(np.float32))
+    v = torch.as_tensor((rng.standard_normal((B, nzi, q))
+                         + 1j * rng.standard_normal((B, nzi, q))).astype(np.complex64))
+    G = FF.schur_factor_plain(d, oy, oz)
+    buf = torch.full((G.numel() + 2,), complex("nan+nanj"), dtype=G.dtype)
+    G_in = buf[:G.numel()].view(G.shape).copy_(G)
+    plan = getattr(FF, name + "_plan")(q)
+    out = torch.full_like(v, complex("nan+nanj"))
+    faults = lib.emu_faults()
+    err = getattr(lib, "hmc_" + name)(G_in.data_ptr(), oz.data_ptr(), v.data_ptr(),
+                                      out.data_ptr(), B, nzi, q, plan.qp, plan.ring,
+                                      plan.n_threads, plan.smem_bytes, None)
+    assert err == 0 and lib.emu_faults() == faults
+    assert bool(torch.isfinite(torch.view_as_real(out)).all())
+    assert relerr(out, getattr(FF, name + "_plain")(G, oz, v)) < SWEEP_TOL
+
+
+@pytest.mark.parametrize("name", ["bt_sweep_fwd", "bt_sweep_bwd"])
+def test_bt_sweep_entries_take_exactly_the_plan(lib, name):
+    """For every q, each sweep's entry point accepts the plan (B = 0: the
+    check, no launch) and refuses its shared memory off by one complex and
+    a ring other than three slots."""
+    entry = getattr(lib, "hmc_" + name)
+    for q in range(1, FF.Q_MAX + 1):
+        p = getattr(FF, name + "_plan")(q)
+
+        def call(smem, ring, p=p, q=q):
+            return entry(None, None, None, None, 0, 1, q, p.qp, ring, p.n_threads, smem, None)
+
+        assert call(p.smem_bytes, p.ring) == 0, q
+        assert call(p.smem_bytes + 8, p.ring) != 0, q
+        assert call(p.smem_bytes - 8, p.ring) != 0, q
+        assert call(p.smem_bytes, 2) != 0 and call(p.smem_bytes, 4) != 0, q
 
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=["c64", "c128"])

@@ -22,9 +22,6 @@ MT1D = {"mt1d_field": 1, "mt1d_field_vjp": 1}
 FUSED = ("schur_factor", "bt_sweep_fwd", "bt_sweep_bwd")
 # the fused launches of a two-mode gradient eval (refine 6: 7 solves forward, 7 adjoint)
 PER_EVAL = {"schur_factor": 1, "bt_sweep_fwd": 14, "bt_sweep_bwd": 14}
-# the least-work ordering of every system here (the tiny flagship's 10 x 11
-# interiors, dprism2d's 55 x 95, the wide profile's 51 x 225) lays its lines
-# along y, so exact counts add the *_lines_y keys (FF.on_lines_y)
 
 pytestmark = pytest.mark.cuda
 
@@ -128,7 +125,7 @@ def test_single_mode_fused_eval_launches(cuda_device):
                         dtype=torch.float32)
     FF.reset_launches()
     (U, _), g = make_potential_vg(gpu, 1.0)(m.to(cuda_device), m.to(cuda_device))
-    assert FF.launches() == FF.on_lines_y({**PER_EVAL, **MT1D})
+    assert FF.launches() == {**PER_EVAL, **MT1D}
     (Uc, _), gc = make_potential_vg(cpu, 1.0)(m, m)
     assert relerr(U.cpu(), Uc) < 1e-4
     g, gc = g.cpu().double(), gc.double()
@@ -167,8 +164,7 @@ def test_y_line_factor_and_refined_solve_at_the_wide_profile(cuda_device):
     x = S.refined_solve(sys_, f, b, iters=6)
     x0 = S.factor_solve(f, b)
     torch.cuda.synchronize()
-    assert FF.launches() == FF.on_lines_y({"schur_factor": 1, "bt_sweep_fwd": 8,
-                                        "bt_sweep_bwd": 8})
+    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 8, "bt_sweep_bwd": 8}
     assert f.fac.lines == "y" and tuple(f.fac.G.shape) == (192, 225, 51, 51)
     exact = S.factor_solve(S.factorize(sys_), b)
     assert float((x - exact).norm() / exact.norm()) < 1e-12
@@ -190,8 +186,7 @@ def test_least_work_lines_at_the_dprism2d_shape(cuda_device):
     x = S.refined_solve(sys_, f, b, iters=6)
     x0 = S.factor_solve(f, b)
     torch.cuda.synchronize()
-    assert FF.launches() == FF.on_lines_y({"schur_factor": 1, "bt_sweep_fwd": 8,
-                                        "bt_sweep_bwd": 8})
+    assert FF.launches() == {"schur_factor": 1, "bt_sweep_fwd": 8, "bt_sweep_bwd": 8}
     assert f.fac.lines == "y" and tuple(f.fac.G.shape) == (176, 95, 55, 55)
     exact = S.factor_solve(S.factorize(sys_), b)
     assert float((x - exact).norm() / exact.norm()) < 1e-12
@@ -220,7 +215,7 @@ def test_graphed_y_line_eval_replays_its_capture_launches(cuda_device, config):
     m_ref = m.roll(1, 0)    # another chain's start: a prior term of each chain
     FF.reset_launches()
     out = vg(m, m_ref)
-    per_eval = FF.on_lines_y({**PER_EVAL, **MT1D})
+    per_eval = {**PER_EVAL, **MT1D}
     assert FF.launches() == per_eval
     (cap,) = vg.captures.values()
     assert cap.launches == per_eval
@@ -282,7 +277,7 @@ def test_fused_gradient_on_card_matches_cpu(cuda_device):
                         dtype=torch.float32)
     FF.reset_launches()
     (U, _), g = make_potential_vg(gpu, 1.0)(m.to(cuda_device), m.to(cuda_device))
-    assert FF.launches() == FF.on_lines_y({**PER_EVAL, **MT1D})
+    assert FF.launches() == {**PER_EVAL, **MT1D}
     (Uc, _), gc = make_potential_vg(cpu, 1.0)(m, m)
     assert relerr(U.cpu(), Uc) < 1e-4
     g, gc = g.cpu().double(), gc.double()
@@ -481,7 +476,7 @@ def test_bench_measure_ess_launches(cuda_device, monkeypatch):
     counts = FF.launches()
     (w,) = windows
     evals = int(w.result.lf_steps[:, 0].sum())
-    assert w.launches == FF.on_lines_y({k: evals * n for k, n in {**PER_EVAL, **MT1D}.items()})
+    assert w.launches == {k: evals * n for k, n in {**PER_EVAL, **MT1D}.items()}
     assert stats["nfevals"] == 2 * evals + 2
     assert "gj_inverse" not in counts and counts["schur_factor"] > evals
     assert stats["kernel_mass"] == "gauss-newton" and stats["kernel_adapted"]
@@ -633,7 +628,7 @@ def test_graphed_replay_counts_one_eval(cuda_device):
     vg, _, (ma, _mb) = _graphed_pair(cuda_device, 2, 4)
     FF.reset_launches()
     vg(ma, ma)
-    per_eval = FF.on_lines_y({**PER_EVAL, **MT1D})
+    per_eval = {**PER_EVAL, **MT1D}
     assert FF.launches() == per_eval
     for k in (2, 3):
         vg(ma, ma)

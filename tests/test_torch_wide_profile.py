@@ -257,9 +257,9 @@ def test_graphed_eval_on_emulated_graphs_counts_its_lines(wide, case, lines, mon
                                                           tmp_path):
     """The graphed fused eval on the CPU's emulated graphs: after its first
     call it reads nothing back to the host, and each replay counts one
-    factor and 14 sweep pairs (refine 6, two solves), all on lines along y
-    on the wide mesh and on the tiny flagship's 10 x 11 interiors, and none
-    on the tall mesh's z-lines."""
+    factor and 14 sweep pairs (refine 6, two solves) whichever axis its
+    lines lie along: y on the wide mesh and on the tiny flagship's 10 x 11
+    interiors, z on the tall mesh."""
     if case == "wide":
         root, inp, _, m, m_ref = wide
         prob, _ = harness.build_problem(root, CFG, inp, FUSED_64, CPU)
@@ -271,32 +271,17 @@ def test_graphed_eval_on_emulated_graphs_counts_its_lines(wide, case, lines, mon
     assert FF.line_axis(prob.mesh.nz - 1, prob.mesh.ny - 1) == lines
     monkeypatch.setattr(G, "unservable", lambda problem: None)
     monkeypatch.setattr(G, "capture", emulated_graph_capture)
-    per_eval = FF.on_lines_y(PER_EVAL) if lines == "y" else PER_EVAL
     with counted_plain_versions():
         vg = G.GraphedPotential(prob, 1.0)
         (U0, _), g0 = vg(m, m_ref)
-        assert FF.launches() == per_eval
+        assert FF.launches() == PER_EVAL
         with no_host_round_trip() as made:
             (U1, _), g1 = vg(m, m_ref)
         assert made == []
-        assert FF.launches() == {k: 2 * n for k, n in per_eval.items()}
+        assert FF.launches() == {k: 2 * n for k, n in PER_EVAL.items()}
         (cap,) = vg.captures.values()
-        assert cap.launches == per_eval
+        assert cap.launches == PER_EVAL
     assert torch.equal(U0, U1) and torch.equal(g0, g1)
-
-
-def test_replayed_y_line_launches_add_apart():
-    """A capture's y-line counts ride through ``add_launches`` beside the
-    kernels' own, and leave ``launches()`` when taken back out."""
-    FF.reset_launches()
-    delta = FF.on_lines_y(PER_EVAL)
-    for _ in range(3):
-        FF.add_launches(delta)
-    assert FF.launches() == {k: 3 * n for k, n in delta.items()}
-    FF.add_launches({k: -3 * n for k, n in delta.items() if k.endswith(FF.LINES_Y)})
-    assert FF.launches() == {k: 3 * n for k, n in PER_EVAL.items()}
-    FF.reset_launches()
-    assert FF.launches() == dict.fromkeys(PER_EVAL, 0)
 
 
 @pytest.fixture(scope="module")
